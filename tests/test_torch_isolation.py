@@ -1,0 +1,61 @@
+"""The port stands alone: no module of ``repro_torch`` and not
+``chip_smoke.py`` imports ``jax`` or the ``repro`` package, so the port runs
+on a machine that has neither."""
+import os
+import re
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_GUARDED = textwrap.dedent("""
+    import importlib, importlib.abc, pkgutil, sys
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            top = name.split(".")[0]
+            if top in ("jax", "jaxlib", "repro"):
+                raise ImportError(f"the port must not import {name}")
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+    import repro_torch
+    names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    repro_torch.set_device("cpu")
+    from repro_torch.core.backends import synth
+    from repro_torch.core.operators.search import sem_index, sem_search
+    recs, world, _, _, emb = synth.make_filter_world(120, seed=2)
+    texts = [r["claim"] for r in recs]
+    for kind, kw in [("exact", {}), ("ivf", {"n_clusters": 4}),
+                     ("ivf", {"n_clusters": 4, "quantize": "int8"})]:
+        idx = sem_index(texts, emb, index=kind, **kw)
+        hits, st = sem_search(idx, texts[7], emb, k=3)
+        assert hits[0] == 7 and st["scored_vectors"] > 0, (hits, st)
+    assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro") for m in sys.modules)
+    print("modules", len(names))
+""")
+
+
+def test_port_imports_and_runs_with_jax_and_repro_refused():
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", _GUARDED], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    n = int(out.stdout.split("modules")[-1])
+    assert n >= 19          # every module of the slice was imported
+
+
+_IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|repro)(?:[.\s,]|$)", re.M)
+
+
+def test_no_source_of_the_port_names_jax_or_repro():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert all(f.exists() for f in files)
+    offenders = {str(f.relative_to(ROOT)): _IMPORT.findall(f.read_text())
+                 for f in files}
+    assert not {f: m for f, m in offenders.items() if m}

@@ -1,0 +1,403 @@
+"""The port's retrieval kernels: every slice-1 contract in
+``repro_torch.kernels.ref`` against its jnp original in ``repro.kernels.ref``,
+the port's ``ops`` against the reference's (Pallas bodies in interpret
+mode) and the dispatch rules.  The hand-written kernels against their plain
+versions, which need a card, are in ``test_torch_kernels_cuda.py``.
+
+Tolerances: scores are dot products of unit vectors summed in another
+order, so they agree to ``rtol=atol=1e-5`` in f32; ``MASKED_SCORE`` lanes,
+probe blocks and top-k ids must be exactly equal (inputs are continuous
+random draws, so there are no ties except the deliberate masked ones)."""
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.index.backend import MASKED_SCORE
+from repro_torch.index.quant import quantize_tiles
+from repro_torch.kernels import ivf_scan as tivf
+from repro_torch.kernels import ivf_scan_q as tivfq
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import similarity as tsim
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(autouse=True)
+def _cpu():
+    repro_torch.set_device("cpu")
+
+
+def _np(x):
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))   # a writable copy
+
+
+def _unit(x):
+    """Rows scaled to unit norm: what the kernels' callers pass with
+    ``normalize=False``, and what the 1e-5 tolerance is stated for."""
+    return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
+
+
+def _assert_plane(got, want):
+    """Masked lanes exactly equal, scored lanes allclose."""
+    got, want = _np(got), _np(want)
+    assert got.shape == want.shape
+    masked = want <= MASKED_SCORE / 2
+    np.testing.assert_array_equal(got[masked], want[masked])
+    assert (got[~masked] > MASKED_SCORE / 2).all()
+    np.testing.assert_allclose(got[~masked], want[~masked], **TOL)
+
+
+def _ivf_world(kc, L, d, nq, seed, *, quantized=False):
+    rng = np.random.default_rng(seed)
+    store = rng.normal(size=(kc, L, d)).astype(np.float32)
+    store /= np.linalg.norm(store, axis=-1, keepdims=True)
+    mask = (rng.random((kc, L)) > 0.3).astype(np.float32)
+    store[mask == 0] = 0.0
+    cents = rng.normal(size=(kc, d)).astype(np.float32)
+    q = rng.normal(size=(nq, d)).astype(np.float32)
+    if quantized:
+        sq, sc = quantize_tiles(store)
+        return q, cents, store, mask, sq, sc
+    return q, cents, store, mask
+
+
+# ---------------------------------------------------------------------------
+# contracts: torch ref vs jnp ref
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("d", [17, 64, 384])
+@pytest.mark.parametrize("nq,nc", [(5, 37), (33, 7), (1, 300)])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_similarity_ref_matches_jnp(d, nq, nc, normalize):
+    rng = np.random.default_rng(d * 1000 + nq)
+    q = rng.normal(size=(nq, d)).astype(np.float32)
+    c = rng.normal(size=(nc, d)).astype(np.float32)
+    if not normalize:
+        q, c = _unit(q), _unit(c)
+    got = tref.similarity_ref(_t(q), _t(c), normalize=normalize)
+    want = jref.similarity_ref(q, c, normalize=normalize)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+
+def test_unitize_and_pad_queries_match_jnp():
+    rng = np.random.default_rng(1)
+    q = rng.normal(size=(13, 17)).astype(np.float32)
+    q[4] = 0.0                                     # the 1e-18 floor
+    np.testing.assert_allclose(_np(tref._unitize(_t(q))),
+                               _np(jref._unitize(q)), **TOL)
+    for nq, bq in [(1, 8), (8, 8), (13, 8), (13, 4)]:
+        tp, tnb = tref.pad_queries(_t(q[:nq]), bq)
+        jp, jnb = jref.pad_queries(q[:nq], bq)
+        assert tnb == jnb
+        np.testing.assert_array_equal(_np(tp), _np(jp))
+
+
+@pytest.mark.parametrize("d", [17, 64, 384])
+def test_ivf_probes_match_jnp_exactly(d):
+    q, cents, *_ = _ivf_world(12, 128, d, 16, seed=d)
+    qu = jref._unitize(q)
+    got = tref.ivf_probes(_t(_np(qu)), _t(cents), 5, 8)
+    want = jref.ivf_probes(qu, cents, 5, 8)
+    assert got.dtype == torch.int32 and got.shape == (2, 40)
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
+def test_ivf_probes_break_ties_to_lowest_index():
+    q = np.ones((8, 4), np.float32)
+    cents = np.ones((6, 4), np.float32)            # every centroid ties
+    got = tref.ivf_probes(_t(q), _t(cents), 3, 8)
+    np.testing.assert_array_equal(_np(got), _np(jref.ivf_probes(q, cents, 3, 8)))
+    np.testing.assert_array_equal(_np(got)[0, :3], [0, 1, 2])
+
+
+@pytest.mark.parametrize("d", [17, 64, 384])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_ivf_scan_ref_matches_jnp(d, normalize):
+    q, cents, store, mask = _ivf_world(6, 128, d, 16, seed=d + 7)
+    pb = np.random.default_rng(d).integers(0, 6, size=(2, 24)).astype(np.int32)
+    q = q if normalize else _unit(q)
+    got = tref.ivf_scan_ref(_t(q), _t(store), _t(mask), _t(pb),
+                            normalize=normalize)
+    want = jref.ivf_scan_ref(q, store, mask, pb, normalize=normalize)
+    _assert_plane(got, want)
+
+
+@pytest.mark.parametrize("d", [17, 64, 384])
+@pytest.mark.parametrize("nq", [1, 8, 11])
+def test_ivf_search_ref_matches_jnp(d, nq):
+    q, cents, store, mask = _ivf_world(7, 128, d, nq, seed=nq * d)
+    ts, tp = tref.ivf_search_ref(_t(q), _t(cents), _t(store), _t(mask), nprobe=3)
+    js, jp = jref.ivf_search_ref(q, cents, store, mask, nprobe=3)
+    np.testing.assert_array_equal(_np(tp), _np(jp))
+    _assert_plane(ts, js)
+
+
+def test_ivf_delta_search_ref_matches_jnp():
+    q, cents, store, mask = _ivf_world(5, 128, 64, 9, seed=3)
+    delta = np.random.default_rng(4).normal(size=(6, 64)).astype(np.float32)
+    delta /= np.linalg.norm(delta, axis=1, keepdims=True)
+    ts, tp = tref.ivf_delta_search_ref(_t(q), _t(cents), _t(store), _t(mask),
+                                       _t(delta), nprobe=2)
+    js, jp = jref.ivf_delta_search_ref(q, cents, store, mask, delta, nprobe=2)
+    np.testing.assert_array_equal(_np(tp), _np(jp))
+    _assert_plane(ts, js)
+
+
+@pytest.mark.parametrize("d", [17, 64, 384])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_ivf_scan_q_ref_matches_jnp(d, normalize):
+    q, cents, store, mask, sq, sc = _ivf_world(6, 128, d, 16, seed=d + 11,
+                                               quantized=True)
+    pb = np.random.default_rng(d + 1).integers(0, 6, size=(2, 16)).astype(np.int32)
+    q = q if normalize else _unit(q)
+    got = tref.ivf_scan_q_ref(_t(q), _t(sq), _t(sc), _t(mask), _t(pb),
+                              normalize=normalize)
+    want = jref.ivf_scan_q_ref(q, sq, sc, mask, pb, normalize=normalize)
+    _assert_plane(got, want)
+
+
+@pytest.mark.parametrize("nq", [3, 16])
+def test_ivf_search_q_and_delta_ref_match_jnp(nq):
+    q, cents, store, mask, sq, sc = _ivf_world(8, 128, 32, nq, seed=nq,
+                                               quantized=True)
+    ts, tp = tref.ivf_search_q_ref(_t(q), _t(cents), _t(sq), _t(sc), _t(mask),
+                                   nprobe=3)
+    js, jp = jref.ivf_search_q_ref(q, cents, sq, sc, mask, nprobe=3)
+    np.testing.assert_array_equal(_np(tp), _np(jp))
+    _assert_plane(ts, js)
+    dq, dsc = quantize_tiles(np.random.default_rng(9).normal(
+        size=(1, 5, 32)).astype(np.float32))
+    dq, dsc = dq[0], dsc[0]
+    ts, tp = tref.ivf_delta_search_q_ref(_t(q), _t(cents), _t(sq), _t(sc),
+                                         _t(mask), _t(dq), _t(dsc), nprobe=3)
+    js, jp = jref.ivf_delta_search_q_ref(q, cents, sq, sc, mask, dq, dsc,
+                                         nprobe=3)
+    np.testing.assert_array_equal(_np(tp), _np(jp))
+    _assert_plane(ts, js)
+
+
+def test_pad_corpus_shards_and_topk_merge_match_jnp():
+    rng = np.random.default_rng(5)
+    c = rng.normal(size=(10, 17)).astype(np.float32)
+    for n in (1, 3, 4):
+        tp, tv, tl = tref.pad_corpus_shards(_t(c), n)
+        jp, jv, jl = jref.pad_corpus_shards(c, n)
+        assert tl == jl
+        np.testing.assert_array_equal(_np(tp), _np(jp))
+        np.testing.assert_array_equal(_np(tv), _np(jv))
+    # ties resolve to the lowest global index, whatever the arrival order
+    s = np.array([[0.5, 0.9, 0.5, MASKED_SCORE, 0.9, MASKED_SCORE]], np.float32)
+    i = np.array([[7, 3, 2, 9, 1, 8]])
+    for k in (2, 4, 6, 9):
+        ts, ti = tref.shard_topk_merge(_t(s), _t(i), k)
+        js, ji = jref.shard_topk_merge(s, i, k)
+        np.testing.assert_array_equal(ts, js)
+        np.testing.assert_array_equal(ti, ji)
+
+
+@pytest.mark.parametrize("nc,n_shards,k", [(40, 4, 5), (10, 4, 4), (5, 4, 7)])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_sharded_search_ref_matches_jnp(nc, n_shards, k, normalize):
+    """Includes shards with fewer than k real rows (masked padding ties)."""
+    rng = np.random.default_rng(nc + k)
+    q = rng.normal(size=(6, 24)).astype(np.float32)
+    c = rng.normal(size=(nc, 24)).astype(np.float32)
+    if not normalize:
+        q, c = _unit(q), _unit(c)
+    ts, ti = tref.sharded_search_ref(_t(q), _t(c), k, n_shards, normalize=normalize)
+    js, ji = jref.sharded_search_ref(q, c, k, n_shards, normalize=normalize)
+    np.testing.assert_array_equal(ti, ji)
+    _assert_plane(ts, js)
+
+
+@pytest.mark.parametrize("n_shards", [1, 3, 4])
+def test_sharded_ivf_search_refs_match_jnp(n_shards):
+    q, cents, store, mask, sq, sc = _ivf_world(10, 128, 32, 7, seed=n_shards,
+                                               quantized=True)
+    ts, tp = tref.sharded_ivf_search_ref(_t(q), _t(cents), _t(store), _t(mask),
+                                         nprobe=4, n_shards=n_shards)
+    js, jp = jref.sharded_ivf_search_ref(q, cents, store, mask, nprobe=4,
+                                         n_shards=n_shards)
+    np.testing.assert_array_equal(_np(tp), _np(jp))
+    _assert_plane(ts, js)
+    ts, tp = tref.sharded_ivf_search_q_ref(_t(q), _t(cents), _t(sq), _t(sc),
+                                           _t(mask), nprobe=4, n_shards=n_shards)
+    js, jp = jref.sharded_ivf_search_q_ref(q, cents, sq, sc, mask, nprobe=4,
+                                           n_shards=n_shards)
+    np.testing.assert_array_equal(_np(tp), _np(jp))
+    _assert_plane(ts, js)
+
+
+def test_sharded_ivf_search_with_an_empty_shard_equals_unsharded_jnp():
+    """6 clusters over 4 shards of 2: the last shard owns none.  The jnp
+    sharded contract raises on its empty gather there; the port skips the
+    shard, and its plane equals the unsharded one, as the contract states."""
+    q, cents, store, mask, sq, sc = _ivf_world(6, 128, 32, 7, seed=5,
+                                               quantized=True)
+    ts, tp = tref.sharded_ivf_search_ref(_t(q), _t(cents), _t(store), _t(mask),
+                                         nprobe=3, n_shards=4)
+    js, jp = jref.ivf_search_ref(q, cents, store, mask, nprobe=3)
+    np.testing.assert_array_equal(_np(tp), _np(jp))
+    _assert_plane(ts, js)
+    ts, tp = tref.sharded_ivf_search_q_ref(_t(q), _t(cents), _t(sq), _t(sc),
+                                           _t(mask), nprobe=3, n_shards=4)
+    js, jp = jref.ivf_search_q_ref(q, cents, sq, sc, mask, nprobe=3)
+    np.testing.assert_array_equal(_np(tp), _np(jp))
+    _assert_plane(ts, js)
+
+
+# ---------------------------------------------------------------------------
+# ops: the port's entry points vs the reference's (Pallas bodies interpreted)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("nq,nc,d", [(16, 16, 32), (37, 53, 17), (9, 70, 384)])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_ops_similarity_matches_pallas_interpret(nq, nc, d, normalize):
+    rng = np.random.default_rng(nq + nc)
+    q = rng.normal(size=(nq, d)).astype(np.float32)
+    c = rng.normal(size=(nc, d)).astype(np.float32)
+    if not normalize:
+        q, c = _unit(q), _unit(c)
+    got = tops.similarity(q, c, normalize=normalize)
+    want = jops.similarity(q, c, normalize=normalize, impl="interpret",
+                           block_q=16, block_c=16)
+    assert isinstance(got, np.ndarray) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("d", [17, 64])
+def test_ops_ivf_search_matches_pallas_interpret(d):
+    q, cents, store, mask, sq, sc = _ivf_world(6, 128, d, 13, seed=d,
+                                               quantized=True)
+    ts, tp = tops.ivf_search(q, cents, store, mask, nprobe=3)
+    js, jp = jops.ivf_search(q, cents, store, mask, nprobe=3, impl="interpret")
+    np.testing.assert_array_equal(tp, jp)
+    _assert_plane(ts, js)
+    ts, tp = tops.ivf_search_q(q, cents, sq, sc, mask, nprobe=3)
+    js, jp = jops.ivf_search_q(q, cents, sq, sc, mask, nprobe=3,
+                               impl="interpret")
+    np.testing.assert_array_equal(tp, jp)
+    _assert_plane(ts, js)
+
+
+@pytest.mark.parametrize("impl", ["auto", "ref"])
+def test_ops_delta_searches_match_reference(impl):
+    q, cents, store, mask, sq, sc = _ivf_world(6, 128, 32, 10, seed=21,
+                                               quantized=True)
+    rng = np.random.default_rng(22)
+    delta = rng.normal(size=(4, 32)).astype(np.float32)
+    delta /= np.linalg.norm(delta, axis=1, keepdims=True)
+    dq, dsc = quantize_tiles(delta[None])
+    ts, tp = tops.ivf_delta_search(q, cents, store, mask, delta, nprobe=2,
+                                   impl=impl)
+    js, jp = jops.ivf_delta_search(q, cents, store, mask, delta, nprobe=2,
+                                   impl="interpret")
+    np.testing.assert_array_equal(tp, jp)
+    _assert_plane(ts, js)
+    ts, tp = tops.ivf_delta_search_q(q, cents, sq, sc, mask, dq[0], dsc[0],
+                                     nprobe=2, impl=impl)
+    js, jp = jops.ivf_delta_search_q(q, cents, sq, sc, mask, dq[0], dsc[0],
+                                     nprobe=2, impl="interpret")
+    np.testing.assert_array_equal(tp, jp)
+    _assert_plane(ts, js)
+
+
+def test_ops_sharded_entries_match_reference_contracts():
+    q, cents, store, mask, sq, sc = _ivf_world(10, 128, 32, 9, seed=31,
+                                               quantized=True)
+    corpus = store[mask > 0][:50]
+    ts, ti = tops.sharded_search(q, corpus, 6, shards=4)
+    js, ji = jref.sharded_search_ref(q, corpus, 6, 4)
+    np.testing.assert_array_equal(ti, ji)
+    _assert_plane(ts, js)
+    ts, tp = tops.sharded_ivf_search(q, cents, store, mask, nprobe=3, shards=4)
+    js, jp = jref.sharded_ivf_search_ref(q, cents, store, mask, nprobe=3,
+                                         n_shards=4)
+    np.testing.assert_array_equal(tp, _np(jp))
+    _assert_plane(ts, js)
+    ts, tp = tops.sharded_ivf_search_q(q, cents, sq, sc, mask, nprobe=3, shards=4)
+    js, jp = jref.sharded_ivf_search_q_ref(q, cents, sq, sc, mask, nprobe=3,
+                                           n_shards=4)
+    np.testing.assert_array_equal(tp, _np(jp))
+    _assert_plane(ts, js)
+    assert tops.effective_shards(4) == 4 and tops._n_devices() == 1
+
+
+# ---------------------------------------------------------------------------
+# dispatch rules
+# ---------------------------------------------------------------------------
+
+
+def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
+    """``ops`` alone picks the plain version, and only for CPU tensors; the
+    kernel wrappers refuse them and count no launch."""
+    rng = np.random.default_rng(41)
+    q, cents, store, mask, sq, sc = _ivf_world(4, 128, 16, 8, seed=41,
+                                               quantized=True)
+    pb = _t(rng.integers(0, 4, size=(1, 16)).astype(np.int32))
+    before = (tsim.launches, tivf.launches, tivfq.launches)
+    np.testing.assert_allclose(
+        tops.similarity(_t(q), _t(q)),
+        _np(tref.similarity_ref(_t(q), _t(q))), **TOL)
+    ts, tp = tops.ivf_search(_t(q), _t(cents), _t(store), _t(mask), nprobe=2)
+    rs, rp = tref.ivf_search_ref(_t(q), _t(cents), _t(store), _t(mask), nprobe=2)
+    np.testing.assert_array_equal(tp, _np(rp))
+    _assert_plane(ts, rs)
+    ts, tp = tops.ivf_search_q(_t(q), _t(cents), _t(sq), _t(sc), _t(mask),
+                               nprobe=2)
+    rs, rp = tref.ivf_search_q_ref(_t(q), _t(cents), _t(sq), _t(sc), _t(mask),
+                                   nprobe=2)
+    np.testing.assert_array_equal(tp, _np(rp))
+    _assert_plane(ts, rs)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tsim.similarity(_t(q), _t(q))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tivf.cluster_scan(_t(q), _t(store), _t(mask), pb)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tivfq.cluster_scan_q(_t(q), _t(sq), _t(sc), _t(mask), pb)
+    assert (tsim.launches, tivf.launches, tivfq.launches) == before
+
+
+def test_impl_modes_and_device_switch():
+    q = np.eye(4, dtype=np.float32)
+    np.testing.assert_allclose(np.diag(tops.similarity(q, q, impl="auto")),
+                               np.ones(4), atol=1e-6)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tops.similarity(q, q, impl="cuda")
+    with pytest.raises(ValueError, match="impl="):
+        tops.similarity(q, q, impl="pallas")
+    if not torch.cuda.is_available():
+        repro_torch.set_device(None)
+        try:
+            with pytest.raises(RuntimeError, match="set_device"):
+                tops.similarity(q, q)
+        finally:
+            repro_torch.set_device("cpu")
+
+
+def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
+    """Shape and launch checks run before any CUDA call, so they show here."""
+    q = torch.zeros((12, 8))
+    store, mask = torch.zeros((3, 128, 8)), torch.zeros((3, 128))
+    pb = torch.zeros((2, 16), dtype=torch.int32)
+    with pytest.raises(ValueError, match="pre-padded"):
+        tivf.check_scan_shapes(q, store, mask, pb, 8)
+    with pytest.raises(ValueError, match="built for"):
+        tivf.check_scan_shapes(torch.zeros((6, 8)), store, mask, pb, 3)
+    with pytest.raises(ValueError, match="shared memory"):
+        tivf.check_scan_shapes(torch.zeros((32, 4096)),
+                               torch.zeros((3, 128, 4096)), mask,
+                               torch.zeros((2, 16), dtype=torch.int32), 16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        from repro_torch.kernels import _build
+        _build.require(q, "queries", torch.float32, 2)

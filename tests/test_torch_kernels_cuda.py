@@ -1,0 +1,144 @@
+"""The hand-written CUDA kernels against their plain torch versions, on the
+card.  Every test here needs a CUDA device and skips without one; the file
+imports neither ``jax`` nor ``repro``, so it runs on a machine with the card
+and the port alone:
+
+    python -m pytest -q tests/test_torch_kernels_cuda.py
+
+The plain versions are held against the JAX reference on the CPU by
+``test_torch_kernels.py``.  Tolerances as there: scores are dot products of
+unit vectors summed in another order (``rtol=atol=1e-5`` in f32);
+``MASKED_SCORE`` lanes, probe blocks and ids must be exactly equal."""
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.index.backend import MASKED_SCORE
+from repro_torch.index.quant import quantize_tiles
+from repro_torch.kernels import ivf_scan as tivf
+from repro_torch.kernels import ivf_scan_q as tivfq
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import similarity as tsim
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    yield torch.device("cuda")
+    repro_torch.set_device(None)
+
+
+def _np(x):
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))   # a writable copy
+
+
+def _unit(x):
+    return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
+
+
+def _assert_plane(got, want):
+    """Masked lanes exactly equal, scored lanes allclose."""
+    got, want = _np(got), _np(want)
+    assert got.shape == want.shape
+    masked = want <= MASKED_SCORE / 2
+    np.testing.assert_array_equal(got[masked], want[masked])
+    assert (got[~masked] > MASKED_SCORE / 2).all()
+    np.testing.assert_allclose(got[~masked], want[~masked], **TOL)
+
+
+def _ivf_world(kc, L, d, nq, seed):
+    rng = np.random.default_rng(seed)
+    store = rng.normal(size=(kc, L, d)).astype(np.float32)
+    store /= np.linalg.norm(store, axis=-1, keepdims=True)
+    mask = (rng.random((kc, L)) > 0.3).astype(np.float32)
+    store[mask == 0] = 0.0
+    cents = rng.normal(size=(kc, d)).astype(np.float32)
+    q = rng.normal(size=(nq, d)).astype(np.float32)
+    sq, sc = quantize_tiles(store)
+    return q, cents, store, mask, sq, sc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,nc,d", [(5, 7, 17), (64, 64, 64), (100, 300, 384),
+                                     (1, 129, 3)])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_similarity_kernel_matches_plain(cuda, nq, nc, d, normalize):
+    rng = np.random.default_rng(nq + nc + d)
+    q = rng.normal(size=(nq, d)).astype(np.float32)
+    c = rng.normal(size=(nc, d)).astype(np.float32)
+    if not normalize:
+        q, c = _unit(q), _unit(c)
+    q, c = _t(q).to(cuda), _t(c).to(cuda)
+    n0 = tsim.launches
+    got = tsim.similarity(q, c, normalize=normalize)
+    torch.cuda.synchronize()
+    assert tsim.launches == n0 + 1
+    torch.testing.assert_close(got, tref.similarity_ref(q, c, normalize=normalize),
+                               **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kc,L,d,bq,nprobe", [(6, 128, 17, 8, 2), (10, 256, 384, 8, 3),
+                                              (5, 128, 64, 4, 2), (7, 384, 384, 16, 2),
+                                              (4, 128, 32, 1, 2)])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_cluster_scan_kernels_match_plain(cuda, kc, L, d, bq, nprobe, normalize):
+    q, _, store, mask, sq, sc = _ivf_world(kc, L, d, 3 * bq, seed=kc + d)
+    pb = np.random.default_rng(L).integers(0, kc, size=(3, bq * nprobe))
+    q = q if normalize else _unit(q)
+    q, store, mask, sq, sc = (_t(a).to(cuda) for a in (q, store, mask, sq, sc))
+    pb = _t(pb.astype(np.int32)).to(cuda)
+    n0 = (tivf.launches, tivfq.launches)
+    got = tivf.cluster_scan(q, store, mask, pb, block_q=bq, normalize=normalize)
+    _assert_plane(got, tref.ivf_scan_ref(q, store, mask, pb, block_q=bq,
+                                         normalize=normalize))
+    got = tivfq.cluster_scan_q(q, sq, sc, mask, pb, block_q=bq, normalize=normalize)
+    _assert_plane(got, tref.ivf_scan_q_ref(q, sq, sc, mask, pb, block_q=bq,
+                                           normalize=normalize))
+    assert (tivf.launches, tivfq.launches) == (n0[0] + 1, n0[1] + 1)
+
+
+def _ops_run(device):
+    """Every slice-1 ops entry on ``device``, from the same numpy inputs."""
+    repro_torch.set_device(device)
+    q, cents, store, mask, sq, sc = _ivf_world(6, 128, 64, 13, seed=77)
+    rng = np.random.default_rng(78)
+    delta = _unit(rng.normal(size=(9, 64)))
+    dq, dsc = quantize_tiles(delta[None])
+    return [
+        tops.similarity(q, store[0]),
+        *tops.ivf_search(q, cents, store, mask, nprobe=3),
+        *tops.ivf_search_q(q, cents, sq, sc, mask, nprobe=3),
+        *tops.ivf_delta_search(q, cents, store, mask, delta, nprobe=2),
+        *tops.ivf_delta_search_q(q, cents, sq, sc, mask, dq[0], dsc[0], nprobe=2),
+        *tops.sharded_search(q, store[0], 5, shards=3),
+        *tops.sharded_ivf_search(q, cents, store, mask, nprobe=3, shards=4),
+        *tops.sharded_ivf_search_q(q, cents, sq, sc, mask, nprobe=3, shards=4),
+    ]
+
+
+@pytest.mark.cuda
+def test_ops_auto_launches_kernels_on_cuda_and_matches_cpu(cuda):
+    n0 = (tsim.launches, tivf.launches, tivfq.launches)
+    got = _ops_run(cuda)
+    n1 = (tsim.launches, tivf.launches, tivfq.launches)
+    want = _ops_run("cpu")
+    assert (tsim.launches, tivf.launches, tivfq.launches) == n1   # CPU: no launch
+    # similarity: direct, the fp32 delta scan, 3 shards (the int8 delta scan
+    # is numpy on the host, as in the reference); each scan: direct, under
+    # its delta search, 3 shards (the 4th of 4 shards of 2 clusters owns none)
+    assert (n1[0] - n0[0], n1[1] - n0[1], n1[2] - n0[2]) == (5, 5, 5)
+    for g, w in zip(got, want):
+        if g.dtype == np.float32:
+            _assert_plane(g, w)
+        else:
+            np.testing.assert_array_equal(g, w)
