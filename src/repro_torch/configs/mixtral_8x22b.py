@@ -1,0 +1,17 @@
+"""mixtral-8x22b [moe] — 56L d=6144 48H (kv=8) ff=16384 vocab=32768,
+8 experts top-2, sliding-window attention. [arXiv:2401.04088; hf]
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mixtral-8x22b", family="moe",
+    num_layers=56, d_model=6144, num_heads=48, num_kv_heads=8,
+    d_ff=16384, vocab_size=32768, rope_theta=1_000_000.0,
+    num_experts=8, experts_per_token=2, sliding_window=4096,
+)
+
+
+def smoke() -> ModelConfig:
+    return CONFIG.with_(num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
+                        d_ff=128, vocab_size=512, num_experts=4, experts_per_token=2,
+                        sliding_window=8, dtype="float32", attn_q_chunk=16)

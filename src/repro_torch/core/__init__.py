@@ -1,2 +1,3 @@
-"""The semantic-operator layer of the port: accounting, the oracle and
-embedder backends, and the operators (slice 1: ``operators/search.py``)."""
+"""The semantic-operator layer of the port: accounting, langex, the oracle
+and embedder backends, and the operators (``operators/search.py``,
+``operators/topk.py``)."""

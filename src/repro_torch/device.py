@@ -7,10 +7,11 @@ CUDA device exists the call raises instead of carrying on on the CPU, so a
 run that was meant for the card can never quietly measure the host.  Tests
 and CPU-only callers say so once with ``set_device("cpu")``.
 
-All arithmetic of the port is IEEE fp32.  PyTorch may route fp32 matrix
-products through TF32 tensor cores (10-bit mantissa) when these two flags
-are on, which changes scores in the fourth digit and with them top-k ids,
-so they are pinned off here, where the package is first imported.
+Every fp32 product of the port is IEEE fp32 (bf16 appears only where a
+model config asks for it).  PyTorch may route fp32 matrix products through
+TF32 tensor cores (10-bit mantissa) when these two flags are on, which
+changes scores in the fourth digit and with them top-k ids, so they are
+pinned off here, where the package is first imported.
 """
 from __future__ import annotations
 

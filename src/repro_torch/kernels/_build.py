@@ -22,7 +22,7 @@ import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("similarity", "ivf_scan", "ivf_scan_q")
+SOURCES = ("similarity", "ivf_scan", "ivf_scan_q", "flash_attention", "rmsnorm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -110,14 +110,16 @@ def check(rc: int, name: str, what: str) -> None:
 
 
 def require(t, what: str, dtype, ndim: int, device=None) -> None:
-    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and rank
-    ``ndim`` (on ``device`` when given): what the kernels take."""
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (one dtype
+    or a tuple of the accepted ones) and rank ``ndim`` (on ``device`` when
+    given): what the kernels take."""
     if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
         raise ValueError(f"{what} must be a CUDA tensor")
     if device is not None and t.device != device:
         raise ValueError(f"{what} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{what} must be {dtype}, got {t.dtype}")
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes:
+        raise ValueError(f"{what} must be {' or '.join(map(str, dtypes))}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{what} must have rank {ndim}, got shape {tuple(t.shape)}")
     if not t.is_contiguous():

@@ -1,4 +1,5 @@
-"""Public entry points of the retrieval kernels with implementation dispatch.
+"""Public entry points of the hand-written kernels with implementation
+dispatch.
 
     impl="auto"   the CUDA kernel for CUDA tensors; the plain torch version
                   only for tensors the caller placed on the CPU
@@ -6,12 +7,17 @@
     impl="ref"    the plain torch contract (``kernels/ref.py``) on the
                   tensors' own device
 
-Inputs may be numpy arrays or tensors; numpy inputs are placed on
-``repro_torch.current_device()`` (CUDA unless the caller chose the CPU), and
-tensors stay where they are, so an index that keeps its store on the card
-passes it without a copy.  Results come back as numpy arrays, the
-reference's boundary.  Nothing here falls back: a kernel that fails to build
-or launch raises.
+Two boundaries, as in the reference:
+
+* the retrieval entries take numpy arrays or tensors; numpy inputs are
+  placed on ``repro_torch.current_device()`` (CUDA unless the caller chose
+  the CPU), tensors stay where they are, so an index that keeps its store
+  on the card passes it without a copy; results come back as numpy arrays;
+* the model-facing entries (:func:`flash_attention`, :func:`rmsnorm`) take
+  and return tensors on their device, open no span and do not synchronize,
+  so a layer's activations never leave the card.
+
+Nothing here falls back: a kernel that fails to build or launch raises.
 """
 from __future__ import annotations
 
@@ -21,9 +27,11 @@ import numpy as np
 import torch
 
 from repro_torch.device import current_device
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ivf_scan as _ivf
 from repro_torch.kernels import ivf_scan_q as _ivfq
 from repro_torch.kernels import ref
+from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import similarity as _sim
 from repro_torch.obs import trace as _trace
 
@@ -89,6 +97,25 @@ def _resolve(impl: str | None, t: torch.Tensor) -> str:
         raise ValueError("impl='cuda' needs CUDA tensors; these are on "
                          f"{t.device}")
     return impl
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    impl: str | None = None) -> torch.Tensor:
+    """GQA attention, q [B,Sq,H,hd], k/v [B,Sk,Hk,hd] -> [B,Sq,H,hd] on the
+    tensors' device; torch contract ``ref.flash_attention_ref``."""
+    if _resolve(impl, q) == "ref":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5,
+            impl: str | None = None) -> torch.Tensor:
+    """x [..., d], scale [d] -> like ``x`` on its device; torch contract
+    ``ref.rmsnorm_ref``."""
+    if _resolve(impl, x) == "ref":
+        return ref.rmsnorm_ref(x, scale, eps=eps)
+    return _rn.rmsnorm(x, scale.float(), eps=eps)
 
 
 def similarity(queries, corpus, *, normalize: bool = True,

@@ -1,4 +1,4 @@
-"""Plain PyTorch contracts of the retrieval kernels.
+"""Plain PyTorch contracts of the hand-written kernels.
 
 These define the numerics the CUDA kernels in ``kernels/csrc`` must match
 (the tests hold each kernel against them on the card, and hold them against
@@ -22,6 +22,8 @@ import torch
 
 from repro_torch.index.backend import MASKED_SCORE  # canonical, numpy-only home
 
+NEG_INF = -1e30   # the attention mask value: finite, so no row turns into NaN
+
 
 def _f32(x, device=None) -> torch.Tensor:
     t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
@@ -31,6 +33,46 @@ def _f32(x, device=None) -> torch.Tensor:
 def _topk_low_index(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+def attn_scale(hd: int) -> float:
+    """``1 / sqrt(hd)`` rounded to f32, as the reference computes it."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(hd)))
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q:[B,Sq,H,hd], k/v:[B,Sk,Hk,hd] (GQA) -> [B,Sq,H,hd] in ``v.dtype``.
+
+    Scores and softmax in f32; masks compare absolute positions counted from
+    0 on both axes; the probabilities are rounded to ``v.dtype`` before the
+    PV product, which sums in f32 and rounds once, as the reference's bf16
+    einsum does."""
+    h, hk = q.shape[2], k.shape[2]
+    if hk != h:
+        k = k.repeat_interleave(h // hk, dim=2)
+        v = v.repeat_interleave(h // hk, dim=2)
+    s = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float()) * attn_scale(q.shape[-1])
+    sq, sk = q.shape[1], k.shape[1]
+    q_pos = torch.arange(sq, device=q.device)
+    k_pos = torch.arange(sk, device=q.device)
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = q_pos[:, None] >= k_pos[None, :]
+    if window:
+        mask = mask & (q_pos[:, None] - k_pos[None, :] < window)
+    s = torch.where(mask[None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqs,bshd->bqhd", p.to(v.dtype).float(), v.float())
+    return out.to(v.dtype)
+
+
+def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5
+                ) -> torch.Tensor:
+    """x:[..., d], scale:[d] -> like ``x``; statistics and scaling in f32."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
 def similarity_ref(queries, corpus, *, normalize: bool = True) -> torch.Tensor:

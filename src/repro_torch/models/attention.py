@@ -1,0 +1,173 @@
+"""GQA self-attention over a sequence: full, chunked (online softmax over KV
+blocks) and the hand-written kernel, picked by ``cfg.attn_impl``.
+
+``attn_impl`` keeps the reference's value set so a config carries across
+unchanged: ``"pallas"`` (the reference's Pallas flash kernel on a TPU) means
+the hand-written CUDA kernel here, reached through ``ops.flash_attention``.
+``"auto"`` launches that kernel for activations on the card; for
+activations on the CPU it keeps the reference's rule: ``"chunked"`` past
+``8 * attn_q_chunk`` positions, else ``"full"``.  Cross attention and the decode-against-cache functions arrive
+with the generate path (slice 2b).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.common import ParamSpec
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ref import NEG_INF, attn_scale
+from repro_torch.models.layers import apply_rope, einsum, einsum_f32
+
+
+# ---------------------------------------------------------------------------
+# Parameter specs
+# ---------------------------------------------------------------------------
+
+
+def attention_spec(cfg: ModelConfig, *, cross: bool = False) -> dict:
+    d, h, hk, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    specs = {
+        ("wq",): ParamSpec((d, h, hd), ("embed_in", "heads", "qkv"), init="scaled"),
+        ("wk",): ParamSpec((d, hk, hd), ("embed_in", "kv_heads", "qkv"), init="scaled"),
+        ("wv",): ParamSpec((d, hk, hd), ("embed_in", "kv_heads", "qkv"), init="scaled"),
+        ("wo",): ParamSpec((h, hd, d), ("heads", "qkv_in", "embed_out"), init="scaled"),
+    }
+    if cfg.qkv_bias and not cross:
+        f32 = torch.float32
+        specs[("bq",)] = ParamSpec((h, hd), ("heads", "qkv"), init="zeros", dtype=f32)
+        specs[("bk",)] = ParamSpec((hk, hd), ("kv_heads", "qkv"), init="zeros", dtype=f32)
+        specs[("bv",)] = ParamSpec((hk, hd), ("kv_heads", "qkv"), init="zeros", dtype=f32)
+    return specs
+
+
+def project_qkv(params, x, *, cfg: ModelConfig, positions=None):
+    """Project hidden states to (q, k, v) [B,S,H|Hk,hd], RoPE applied."""
+    q = einsum("bsd,dhk->bshk", x, params["wq"])
+    k = einsum("bsd,dhk->bshk", x, params["wk"])
+    v = einsum("bsd,dhk->bshk", x, params["wv"])
+    if "bq" in params:
+        q = q + params["bq"].to(q.dtype)
+        k = k + params["bk"].to(k.dtype)
+        v = v + params["bv"].to(v.dtype)
+    if positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def out_proj(params, attn_out):
+    return einsum("bshk,hkd->bsd", attn_out, params["wo"])
+
+
+# ---------------------------------------------------------------------------
+# Core softmax attention (GQA-aware)
+# ---------------------------------------------------------------------------
+
+
+def _repeat_kv(k, num_heads):
+    """[B,S,Hk,hd] -> [B,S,H,hd]: q-head h reads kv-head h // (H/Hk)."""
+    hk = k.shape[2]
+    if hk == num_heads:
+        return k
+    return k.repeat_interleave(num_heads // hk, dim=2)
+
+
+def gqa_attend(q, k, v, mask):
+    """q:[B,Sq,H,hd] k,v:[B,Sk,Hk,hd] mask: broadcastable to [B,1,Sq,Sk] (bool).
+
+    Returns [B,Sq,H,hd]; scores and softmax in f32.  A single-token q
+    (decode) takes the grouped product, which never repeats the KV."""
+    b, sq, h, hd = q.shape
+    hk = k.shape[2]
+    scale = attn_scale(hd)
+    if sq == 1 and hk != h:
+        g = h // hk
+        qg = q.reshape(b, 1, hk, g, hd)
+        scores = einsum_f32("bqkgd,bskd->bkgqs", qg, k) * scale
+        scores = torch.where(mask[:, :, None] if mask.dim() == 4 else mask,
+                             scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        out = einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype), v)
+        return out.reshape(b, 1, h, hd)
+    k = _repeat_kv(k, h)
+    v = _repeat_kv(v, h)
+    scores = einsum_f32("bqhd,bshd->bhqs", q, k) * scale
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return einsum("bhqs,bshd->bqhd", probs.to(v.dtype), v)
+
+
+def make_mask(q_pos, k_pos, *, causal: bool, window: int = 0, k_valid=None):
+    """Boolean mask [.., Sq, Sk] from absolute positions."""
+    m = torch.ones(q_pos.shape[-1:] + k_pos.shape[-1:], dtype=torch.bool,
+                   device=q_pos.device)
+    if causal:
+        m = q_pos[..., :, None] >= k_pos[..., None, :]
+    if window:
+        m = m & (q_pos[..., :, None] - k_pos[..., None, :] < window)
+    if k_valid is not None:
+        m = m & k_valid[..., None, :]
+    return m
+
+
+# ---------------------------------------------------------------------------
+# Full / chunked / kernel self-attention over a sequence
+# ---------------------------------------------------------------------------
+
+
+def self_attention(params, x, *, cfg: ModelConfig, causal: bool = True):
+    """Self-attention over a whole sequence.
+
+    Returns (out [B,S,D], (k, v)): k/v are handed back as the reference
+    does, for a prefill to fill a decode cache."""
+    b, s, _ = x.shape
+    pos = torch.arange(s, device=x.device)
+    q, k, v = project_qkv(params, x, cfg=cfg, positions=pos[None, :])
+    impl = cfg.attn_impl
+    if impl == "auto":
+        if x.is_cuda:
+            impl = "pallas"
+        else:
+            impl = "chunked" if s > 8 * cfg.attn_q_chunk else "full"
+    if impl == "pallas":
+        from repro_torch.kernels import ops as kops
+        # the kernel reads the [B,S,H,hd] layout the projections produce;
+        # .contiguous() copies only if a projection returned a strided view
+        out = kops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                   causal=causal, window=cfg.sliding_window)
+    elif impl == "chunked":
+        out = _kv_chunked_attention(q, k, v, cfg=cfg, causal=causal)
+    else:
+        mask = make_mask(pos, pos, causal=causal, window=cfg.sliding_window)
+        out = gqa_attend(q, k, v, mask[None, None])
+    return out_proj(params, out), (k, v)
+
+
+def _kv_chunked_attention(q, k, v, *, cfg: ModelConfig, causal: bool):
+    """Online-softmax loop over KV blocks of ``attn_q_chunk`` positions; the
+    peak score buffer is [B, H, S, C] for one block."""
+    b, s, h, hd = q.shape
+    c = min(cfg.attn_q_chunk, s)
+    k = _repeat_kv(k, h)
+    v = _repeat_kv(v, h)
+    q_pos = torch.arange(s, device=q.device)
+    scale = attn_scale(hd)
+    f32 = torch.float32
+    m = torch.full((b, h, s), NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros((b, h, s), dtype=f32, device=q.device)
+    o = torch.zeros((b, s, h, hd), dtype=f32, device=q.device)
+    for start in range(0, s, c):
+        k_blk, v_blk = k[:, start:start + c], v[:, start:start + c]
+        k_pos = start + torch.arange(k_blk.shape[1], device=q.device)
+        mask = make_mask(q_pos, k_pos, causal=causal, window=cfg.sliding_window)
+        sc = einsum_f32("bqhd,bshd->bhqs", q, k_blk) * scale
+        sc = torch.where(mask[None, None], sc, NEG_INF)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        o = o * alpha.transpose(1, 2)[..., None] + einsum(
+            "bhqs,bshd->bqhd", p.to(v_blk.dtype), v_blk).float()
+        m = m_new
+    o = o / torch.clamp(l.transpose(1, 2)[..., None], min=1e-30)
+    return o.to(q.dtype)

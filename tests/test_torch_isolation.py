@@ -1,6 +1,8 @@
 """The port stands alone: no module of ``repro_torch`` and not
 ``chip_smoke.py`` imports ``jax`` or the ``repro`` package, so the port runs
-on a machine that has neither."""
+on a machine that has neither.  The guarded run imports every module of the
+port and drives retrieval and the LLM oracle (predicate, LLM rerank) on the
+CPU."""
 import os
 import re
 import subprocess
@@ -11,7 +13,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 _GUARDED = textwrap.dedent("""
-    import importlib, importlib.abc, pkgutil, sys
+    import importlib, importlib.abc, pathlib, sys
 
     class Refuse(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -22,7 +24,9 @@ _GUARDED = textwrap.dedent("""
 
     sys.meta_path.insert(0, Refuse())
     import repro_torch
-    names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+    root = pathlib.Path(repro_torch.__file__).parent
+    names = sorted("repro_torch." + ".".join(p.relative_to(root).with_suffix("").parts)
+                   .removesuffix(".__init__") for p in root.rglob("*.py"))
     for name in names:
         importlib.import_module(name)
     repro_torch.set_device("cpu")
@@ -35,6 +39,18 @@ _GUARDED = textwrap.dedent("""
         idx = sem_index(texts, emb, index=kind, **kw)
         hits, st = sem_search(idx, texts[7], emb, k=3)
         assert hits[0] == 7 and st["scored_vectors"] > 0, (hits, st)
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.backends.torch_engine import EngineModel
+    from repro_torch.data.tokenizer import TOKENIZER
+    from repro_torch.engine.engine import InferenceEngine
+    cfg = get_smoke("llama3.2-3b").with_(vocab_size=TOKENIZER.vocab_size,
+                                         attn_impl="pallas")
+    model = EngineModel(InferenceEngine(cfg, seed=0, max_seq=128))
+    passes, scores = model.predicate(["The sky is blue.", "2 + 2 = 5"])
+    assert passes.shape == (2,) and ((scores > 0) & (scores < 1)).all(), scores
+    hits, st = sem_search(idx, texts[7], emb, k=4, n_rerank=2, rerank_model=model,
+                          records=recs, rerank_langex="{claim}")
+    assert len(hits) == 2 and st["reranked"] == 2, (hits, st)
     assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro") for m in sys.modules)
     print("modules", len(names))
 """)
@@ -46,7 +62,7 @@ def test_port_imports_and_runs_with_jax_and_repro_refused():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
     n = int(out.stdout.split("modules")[-1])
-    assert n >= 19          # every module of the slice was imported
+    assert n >= 51          # every module of slices 1 and 2a was imported
 
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|repro)(?:[.\s,]|$)", re.M)

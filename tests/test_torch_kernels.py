@@ -1,13 +1,18 @@
-"""The port's retrieval kernels: every slice-1 contract in
+"""The port's kernels on the CPU: every contract in
 ``repro_torch.kernels.ref`` against its jnp original in ``repro.kernels.ref``,
 the port's ``ops`` against the reference's (Pallas bodies in interpret
 mode) and the dispatch rules.  The hand-written kernels against their plain
 versions, which need a card, are in ``test_torch_kernels_cuda.py``.
 
-Tolerances: scores are dot products of unit vectors summed in another
-order, so they agree to ``rtol=atol=1e-5`` in f32; ``MASKED_SCORE`` lanes,
-probe blocks and top-k ids must be exactly equal (inputs are continuous
-random draws, so there are no ties except the deliberate masked ones)."""
+Tolerances: retrieval scores are dot products of unit vectors summed in
+another order, so they agree to ``rtol=atol=1e-5`` in f32; ``MASKED_SCORE``
+lanes, probe blocks and top-k ids must be exactly equal (inputs are
+continuous random draws, so there are no ties except the deliberate masked
+ones).  Attention: 1e-5 in f32 and 2e-2 in bf16, where the Pallas kernel
+rounds its unnormalised probabilities to bf16 and the contract its
+normalised ones.  RMSNorm: 1e-6 in f32 and one bf16 unit in the last place
+in bf16."""
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -17,10 +22,12 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.index.backend import MASKED_SCORE
 from repro_torch.index.quant import quantize_tiles
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ivf_scan as tivf
 from repro_torch.kernels import ivf_scan_q as tivfq
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rmsnorm as trn
 from repro_torch.kernels import similarity as tsim
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -334,6 +341,92 @@ def test_ops_sharded_entries_match_reference_contracts():
 
 
 # ---------------------------------------------------------------------------
+# model-facing kernels: flash_attention and rmsnorm
+# ---------------------------------------------------------------------------
+
+# the sweep of tests/test_kernels.py, plus Sq != Sk
+ATTN_SHAPES = [  # b, sq, sk, h, hk, hd
+    (1, 64, 64, 4, 4, 64), (2, 128, 128, 4, 2, 64), (1, 100, 100, 8, 8, 32),
+    (2, 48, 48, 8, 2, 128), (1, 33, 33, 2, 1, 128), (2, 37, 53, 4, 2, 32),
+    (1, 52, 37, 4, 1, 16),       # Sq > Sk, every row sees a key at window 16
+]
+ATTN_DTYPES = [("float32", torch.float32, jnp.float32, 1e-5),
+               ("bfloat16", torch.bfloat16, jnp.bfloat16, 2e-2)]
+
+
+def _attn_inputs(b, sq, sk, h, hk, hd, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, sq, h, hd)).astype(np.float32),
+            rng.normal(size=(b, sk, hk, hd)).astype(np.float32),
+            rng.normal(size=(b, sk, hk, hd)).astype(np.float32))
+
+
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+@pytest.mark.parametrize("name,tdt,jdt,tol", ATTN_DTYPES)
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 16), (False, 0)])
+def test_flash_attention_plain_matches_jax_kernel_and_contract(shape, name, tdt, jdt,
+                                                               tol, causal, window):
+    """The port's plain version (what ``ops`` runs on the CPU) against the
+    Pallas kernel in interpret mode and against the jnp contract, on the
+    same inputs rounded the same way to the working type."""
+    arrs = _attn_inputs(*shape, seed=sum(shape) + window)
+    got = tops.flash_attention(*(_t(a).to(tdt) for a in arrs), causal=causal,
+                               window=window)
+    b, sq, _, h, _, hd = shape
+    assert got.dtype == tdt and tuple(got.shape) == (b, sq, h, hd)
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in arrs)
+    want_ref = jref.flash_attention_ref(jq, jk, jv, causal=causal, window=window)
+    want_pal = jops.flash_attention(jq, jk, jv, causal=causal, window=window,
+                                    impl="interpret", block_q=32, block_k=32)
+    for want in (want_ref, want_pal):
+        np.testing.assert_allclose(_np(got.float()), np.asarray(want, np.float32),
+                                   rtol=tol, atol=tol)
+
+
+def test_flash_attention_rows_no_key_may_see_match_the_contract():
+    """Sq >= Sk + window leaves rows with every score masked: the contract
+    (and the port) give them the uniform softmax over the masked scores.
+    The Pallas kernel's padded tail keys share in that average, so only the
+    jnp contract is compared here."""
+    q, k, v = _attn_inputs(1, 70, 20, 4, 2, 16, seed=9)
+    for causal in (True, False):
+        got = tops.flash_attention(_t(q), _t(k), _t(v), causal=causal, window=8)
+        want = jref.flash_attention_ref(q, k, v, causal=causal, window=8)
+        np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(_np(got)[0, 69], np.repeat(v.mean(1), 2, axis=1)[0],
+                               rtol=1e-5, atol=1e-5)
+
+
+def _bf16_ulps(got: torch.Tensor, want) -> int:
+    """Largest distance in bf16 units in the last place (bit patterns mapped
+    to a monotonic integer scale)."""
+    w = torch.from_numpy(np.asarray(want).view(np.int16).copy())
+    def key(bits):
+        bits = bits.long()
+        return torch.where(bits >= 0, bits, -(bits & 0x7FFF))
+    return int((key(got.view(torch.int16)) - key(w)).abs().max())
+
+
+@pytest.mark.parametrize("shape", [(8, 64), (3, 5, 128), (130, 256), (5, 17)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_plain_matches_jax_kernel(shape, dtype):
+    rng = np.random.default_rng(sum(shape))
+    x = rng.normal(size=shape).astype(np.float32)
+    scale = rng.normal(size=shape[-1:]).astype(np.float32)
+    tx = _t(x).to(getattr(torch, dtype))
+    got = tops.rmsnorm(tx, _t(scale), eps=1e-5)
+    want = jops.rmsnorm(jnp.asarray(x, dtype), jnp.asarray(scale), eps=1e-5,
+                        impl="interpret", block_rows=32)
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    if dtype == "float32":
+        np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-6, atol=1e-6)
+    else:
+        assert _bf16_ulps(got, want) <= 1
+    np.testing.assert_array_equal(
+        _np(got.float()), _np(tref.rmsnorm_ref(tx, _t(scale)).float()))
+
+
+# ---------------------------------------------------------------------------
 # dispatch rules
 # ---------------------------------------------------------------------------
 
@@ -366,6 +459,26 @@ def test_wrappers_take_the_plain_version_only_for_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         tivfq.cluster_scan_q(_t(q), _t(sq), _t(sc), _t(mask), pb)
     assert (tsim.launches, tivf.launches, tivfq.launches) == before
+    # the model-facing entries: tensors in, tensors out, on the CPU the plain
+    # version; the kernel wrappers refuse CPU tensors and count nothing
+    qa, ka, va = (_t(a) for a in _attn_inputs(1, 9, 9, 4, 2, 16, seed=42))
+    x, scale = qa.reshape(-1, 16), torch.linspace(0.5, 2.0, 16)
+    before = (tfa.launches, trn.launches)
+    got = tops.flash_attention(qa, ka, va, causal=True, window=4)
+    assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
+    torch.testing.assert_close(got, tref.flash_attention_ref(qa, ka, va, window=4),
+                               rtol=0, atol=0)
+    got = tops.rmsnorm(x, scale, eps=1e-6)
+    torch.testing.assert_close(got, tref.rmsnorm_ref(x, scale, eps=1e-6), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tfa.flash_attention(qa, ka, va)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        trn.rmsnorm(x, scale)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tops.flash_attention(qa, ka, va, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tops.rmsnorm(x, scale, impl="cuda")
+    assert (tfa.launches, trn.launches) == before
 
 
 def test_impl_modes_and_device_switch():
@@ -401,3 +514,14 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="CUDA tensor"):
         from repro_torch.kernels import _build
         _build.require(q, "queries", torch.float32, 2)
+    qa, ka = torch.zeros((1, 5, 4, 16)), torch.zeros((1, 5, 2, 16))
+    tfa.check_shapes(qa, ka, ka, 0)
+    with pytest.raises(ValueError, match="multiple"):
+        tfa.check_shapes(torch.zeros((1, 5, 3, 16)), ka, ka, 0)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.check_shapes(torch.zeros((1, 5, 4, 256)), torch.zeros((1, 5, 2, 256)),
+                         torch.zeros((1, 5, 2, 256)), 0)
+    with pytest.raises(ValueError, match="one key"):
+        tfa.check_shapes(qa, ka[:, :0], ka[:, :0], 0)
+    with pytest.raises(ValueError, match="do not fit"):
+        tfa.check_shapes(qa, torch.zeros((2, 5, 2, 16)), torch.zeros((2, 5, 2, 16)), 0)

@@ -6,21 +6,30 @@ and the port alone:
     python -m pytest -q tests/test_torch_kernels_cuda.py
 
 The plain versions are held against the JAX reference on the CPU by
-``test_torch_kernels.py``.  Tolerances as there: scores are dot products of
-unit vectors summed in another order (``rtol=atol=1e-5`` in f32);
-``MASKED_SCORE`` lanes, probe blocks and ids must be exactly equal."""
+``test_torch_kernels.py``.  Tolerances as there: retrieval scores are dot
+products of unit vectors summed in another order (``rtol=atol=1e-5`` in
+f32); ``MASKED_SCORE`` lanes, probe blocks and ids must be exactly equal.
+Attention sums in another order and rounds its probabilities to the input
+type at another point (before or after the division by the row sum):
+``1e-5`` in f32, ``2e-2`` in bf16.  RMSNorm agrees to ``1e-5`` in f32 and
+to one bf16 unit in the last place in bf16."""
 import numpy as np
 import pytest
 import torch
 
 import repro_torch
+from repro_torch.common import init_params
+from repro_torch.configs import get_smoke
 from repro_torch.index.backend import MASKED_SCORE
 from repro_torch.index.quant import quantize_tiles
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ivf_scan as tivf
 from repro_torch.kernels import ivf_scan_q as tivfq
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import rmsnorm as trn
 from repro_torch.kernels import similarity as tsim
+from repro_torch.models import attention as tattn
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -142,3 +151,105 @@ def test_ops_auto_launches_kernels_on_cuda_and_matches_cpu(cuda):
             _assert_plane(g, w)
         else:
             np.testing.assert_array_equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention and rmsnorm
+# ---------------------------------------------------------------------------
+
+ATTN_SHAPES = [  # b, sq, sk, h, hk, hd
+    (1, 64, 64, 4, 4, 64), (2, 100, 100, 8, 2, 64), (2, 48, 48, 8, 2, 128),
+    (1, 33, 33, 2, 1, 128), (2, 77, 77, 4, 2, 16), (2, 37, 53, 4, 2, 32),
+    (1, 70, 20, 4, 2, 16),        # Sq > Sk + window: rows no key may see
+    (1, 130, 130, 24, 8, 128),    # the llama3.2-3b head layout
+]
+MASKS = [(True, 0), (True, 16), (False, 0), (False, 8)]
+
+
+def _attn_inputs(b, sq, sk, h, hk, hd, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, sq, h, hd, generator=g)
+    k = torch.randn(b, sk, hk, hd, generator=g)
+    v = torch.randn(b, sk, hk, hd, generator=g)
+    return (t.to("cuda", dtype) for t in (q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_flash_attention_kernel_matches_plain(cuda, shape, dtype, causal, window):
+    q, k, v = _attn_inputs(*shape, dtype, seed=sum(shape) + window)
+    n0 = tfa.launches
+    got = tfa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tfa.launches == n0 + 1 and got.dtype == dtype
+    want = tref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> int:
+    """The largest distance, in bf16 units in the last place, between two
+    bf16 tensors (bit patterns mapped to a monotonic integer scale)."""
+    def key(t):
+        bits = t.view(torch.int16).long()
+        return torch.where(bits >= 0, bits, -(bits & 0x7FFF))
+    return int((key(got) - key(want)).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 64), (3, 5, 128), (130, 256), (7, 3072),
+                                   (5, 17), (4, 3, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
+    g = torch.Generator().manual_seed(sum(shape))
+    x = torch.randn(shape, generator=g).to("cuda", dtype)
+    scale = torch.randn(shape[-1], generator=g).to("cuda")
+    n0 = trn.launches
+    got = trn.rmsnorm(x, scale, eps=1e-5)
+    torch.cuda.synchronize()
+    assert trn.launches == n0 + 1 and got.dtype == dtype and got.shape == x.shape
+    want = tref.rmsnorm_ref(x, scale, eps=1e-5)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert bf16_ulps(got, want) <= 1
+
+
+@pytest.mark.cuda
+def test_model_ops_launch_kernels_on_cuda_and_match_cpu(cuda):
+    """``ops.flash_attention`` / ``ops.rmsnorm`` return tensors on the
+    inputs' device and launch the kernel there; on the CPU the plain
+    version runs and nothing launches."""
+    q, k, v = _attn_inputs(2, 40, 40, 4, 2, 16, torch.float32, seed=5)
+    x, scale = q.reshape(-1, 16), torch.ones(16, device="cuda", dtype=torch.bfloat16)
+    n0 = (tfa.launches, trn.launches)
+    a = tops.flash_attention(q, k, v, causal=True, window=8)
+    r = tops.rmsnorm(x, scale, eps=1e-6)
+    assert a.is_cuda and r.is_cuda and (tfa.launches, trn.launches) == (n0[0] + 1, n0[1] + 1)
+    a_cpu = tops.flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=True, window=8)
+    r_cpu = tops.rmsnorm(x.cpu(), scale.cpu(), eps=1e-6)
+    assert (tfa.launches, trn.launches) == (n0[0] + 1, n0[1] + 1)
+    torch.testing.assert_close(a.cpu(), a_cpu, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(r.cpu(), r_cpu, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_self_attention_auto_launches_kernel_on_cuda(cuda):
+    """Under the configs' default ``attn_impl="auto"`` the model's
+    self-attention launches the kernel for activations on the card; for
+    activations on the CPU it keeps the reference's plain rule and launches
+    nothing.  Both agree to the f32 attention tolerance."""
+    cfg = get_smoke("llama3.2-3b")
+    assert cfg.attn_impl == "auto" and cfg.dtype == "float32"
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(tattn.attention_spec(cfg), gen)
+    x = torch.randn(2, 40, cfg.d_model, generator=gen, device="cuda")
+    n0 = tfa.launches
+    out, _ = tattn.self_attention(params, x, cfg=cfg)
+    assert out.is_cuda and tfa.launches == n0 + 1
+    want, _ = tattn.self_attention({k: t.cpu() for k, t in params.items()}, x.cpu(),
+                                   cfg=cfg)
+    assert tfa.launches == n0 + 1
+    torch.testing.assert_close(out.cpu(), want, rtol=1e-5, atol=1e-5)
