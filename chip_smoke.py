@@ -51,6 +51,33 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 the ``ops.rmsnorm`` entry at the oracle's activations,
                 counted on its own, and the forward pass's time by kernel
                 (profiler).
+  9. decode kernel — ``decode_attention`` against its plain version in f32
+                and bf16: the generate path's shape (q [32,1,24,128], k/v
+                [32,1024,8,128]), a 256 window, Hk = H, hd 64 and 16, S 77,
+                129 and 300, lens 0, S - 1 and past S; timed beside the
+                bound and SDPA (bool mask, GQA);
+ 10. small generate — the smoke-size model (f32) generating on the card
+                against the CPU: identical texts, teacher-forced log-probs
+                within 1e-5;
+ 11. the generate path at full width — llama3.2-3b (bf16, random weights,
+                the same vocabulary cut), ``InferenceEngine(max_slots=32,
+                max_seq=1024)``: launch counters set to 0, then ``sem_map``
+                over 64 records (64 new tokens each) and
+                ``sem_agg_hierarchical`` (fanout 8) over the notes, through
+                ``EngineModel``; ``decode_attention`` must have launched 28
+                times per decode step and ``flash_attention`` 28 times per
+                prefill, and every request must end done, none failed or
+                retried.  Time to first token, the decode step at 32 active
+                slots, generated tokens/s, peak memory, and one decode step
+                by kernel (profiler);
+ 12. generate agreement — the kernel path against the plain path
+                (``attn_impl="full"``) teacher-forced over 32 sequences x 64
+                generated positions: bf16 through 28 layers to
+                GEN_BF16_LOGPROB_TOL (a limit that a second correct plain
+                path meets and two gross faults exceed), f32 through 4
+                layers to 1e-4;
+ 13. paged decode — ``engine/paged.py`` against contiguous decode at full
+                width (8 rows, pages of 16), its kernel launches counted.
 
 The second-to-last line of output is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -59,7 +86,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
+import gc
 import json
 import os
 import statistics
@@ -77,19 +106,25 @@ from repro_torch.common import flatten  # noqa: E402
 from repro_torch.configs import get_config, get_smoke  # noqa: E402
 from repro_torch.core.backends import synth  # noqa: E402
 from repro_torch.core.backends.torch_engine import EngineModel  # noqa: E402
+from repro_torch.core.operators.agg import sem_agg_hierarchical  # noqa: E402
+from repro_torch.core.operators.mapex import sem_map  # noqa: E402
 from repro_torch.core.operators.search import (sem_index, sem_search,  # noqa: E402
                                                sem_sim_join)
 from repro_torch.core.operators.topk import compare_prompt  # noqa: E402
 from repro_torch.data.tokenizer import TOKENIZER  # noqa: E402
+from repro_torch.engine import engine as engine_mod  # noqa: E402
+from repro_torch.engine import paged  # noqa: E402
 from repro_torch.engine.engine import InferenceEngine  # noqa: E402
+from repro_torch.engine.scheduler import ContinuousBatchScheduler  # noqa: E402
 from repro_torch.index.backend import MASKED_SCORE  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import decode_attention as kda  # noqa: E402
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
 from repro_torch.kernels import ivf_scan as kivf  # noqa: E402
 from repro_torch.kernels import ivf_scan_q as kivfq  # noqa: E402
 from repro_torch.kernels import rmsnorm as krn  # noqa: E402
 from repro_torch.kernels import similarity as ksim  # noqa: E402
-from repro_torch.models import attention, layers  # noqa: E402
+from repro_torch.models import attention, layers, registry  # noqa: E402
 from repro_torch.obs import trace  # noqa: E402
 
 DIM = 384              # E5_SMALL's width (src/repro/embed/encoder.py)
@@ -99,6 +134,8 @@ K = 10
 N_QUERIES = 256
 NOISE = 0.04           # the main corpus: tight clusters, recall@10 near 1
 HARD_NOISE = 0.065     # the hard corpus: clusters straddle the IVF lists
+HARD_ROWS = 250_000    # the hard corpus's rows, cut from the main corpus's 1M for the
+                       # run's time limit (its four host k-means builds are the cost)
 TOL = 1e-5             # unit-vector dot products summed in another order
 
 # NVIDIA datasheet peaks (dense): device-memory bytes/s, fp32 FLOP/s outside
@@ -108,7 +145,8 @@ PEAKS = {"H100 SXM": (3.35e12, 67e12, 989e12), "H100 PCIe": (2.0e12, 51e12, 756e
          "H100 NVL": (3.9e12, 60e12, 835e12)}
 
 _RETRIEVAL = (("similarity", ksim), ("cluster_scan", kivf), ("cluster_scan_q", kivfq))
-_KERNELS = _RETRIEVAL + (("flash_attention", kfa), ("rmsnorm", krn))
+_KERNELS = _RETRIEVAL + (("flash_attention", kfa), ("rmsnorm", krn),
+                         ("decode_attention", kda))
 _SOURCES = {"similarity": ("src/repro_torch/kernels/csrc/similarity.cu",
                            "src/repro/kernels/similarity.py:45"),
             "cluster_scan": ("src/repro_torch/kernels/csrc/ivf_scan.cu",
@@ -118,7 +156,9 @@ _SOURCES = {"similarity": ("src/repro_torch/kernels/csrc/similarity.cu",
             "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                 "src/repro/kernels/flash_attention.py:64"),
             "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
-                        "src/repro/kernels/rmsnorm.py:22")}
+                        "src/repro/kernels/rmsnorm.py:22"),
+            "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                                 "src/repro/kernels/decode_attention.py:55")}
 
 ORACLE = "llama3.2-3b"
 ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}   # atol + rtol * |plain|
@@ -193,6 +233,16 @@ def log(*a):
     print(*a, flush=True)
 
 
+_LAP = [time.perf_counter()]
+
+
+def lap(phase: str) -> None:
+    """Print the wall seconds since the previous phase ended."""
+    now = time.perf_counter()
+    log(f"phase {phase}: {now - _LAP[0]:.1f} s")
+    _LAP[0] = now
+
+
 def peaks(name: str) -> tuple[str, float, float, float]:
     sku = "H100 PCIe" if "PCIe" in name else "H100 NVL" if "NVL" in name \
         else "H100 SXM"
@@ -212,6 +262,25 @@ def cuda_ms(fn, reps: int) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time of one call of ``fn``: the profiler's sum over every
+    kernel and copy that ``reps`` calls launched, divided by ``reps``.
+    CUDA events around a call also count the host's launch time, which on
+    a busy host exceeds a decode kernel's own tenth of a millisecond; the
+    profiler counts device time alone."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    assert total > 0, "the profiler recorded no device time"
+    return total / reps / 1e3
 
 
 def plane_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -439,7 +508,9 @@ def hard_recall(args) -> dict:
     lists.  nprobe comes from the repo's own recall knob
     (``recall_target=0.90``, the floor); the recall@10 of other nprobe
     values is printed beside it."""
-    corpus, queries = make_corpus(args.rows, args.seed + 3, HARD_NOISE)
+    rows = min(args.rows, HARD_ROWS)
+    log(f"cut: hard corpus rows {rows} (main corpus {args.rows})")
+    corpus, queries = make_corpus(rows, args.seed + 3, HARD_NOISE)
     emb = RowEmbedder(corpus, queries)
     corpus_texts = [f"c:{i}" for i in range(len(corpus))]
     query_texts = [f"q:{i}" for i in range(N_QUERIES)]
@@ -855,6 +926,442 @@ def oracle_phase(args) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the generate path: decode_attention, and prefill + decode at full width
+# ---------------------------------------------------------------------------
+
+GEN_SLOTS, GEN_MAX_SEQ, GEN_NEW = 32, 1024, 64
+# Teacher-forced log-probs of the generate path, kernel path against the
+# plain path (attn_impl="full") on the same weights, over 32 sequences x 64
+# generated positions (prefill + 63 decode steps): in f32 through
+# GEN_F32_LAYERS layers to 1e-4; in bf16 through 28 layers to
+# GEN_BF16_LOGPROB_TOL, a limit set between the kernel path's reading and
+# the readings of two gross faults of the plain path (PERF.md §6).
+GEN_F32_LAYERS = 4
+GEN_F32_LOGPROB_TOL = 1e-4
+GEN_BF16_LOGPROB_TOL = 0.2
+NEAR_TIE = 1e-4   # a top-1/top-2 log-prob margin under which greedy f32 paths may part
+
+
+def decode_kernel_phase(args, bw, bf16) -> dict:
+    """decode_attention against its plain version on the card, in f32 and
+    bf16, at the generate path's shape and at ragged edges (window, no GQA,
+    small head dims, S no multiple of a tile, lens 0, S - 1 and past S),
+    timed beside the bound and SDPA."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cuda").manual_seed(args.seed + 5)
+    cfg = get_config(ORACLE)
+    B, S, H, HK, HD = GEN_SLOTS, GEN_MAX_SEQ, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    f32, b16 = torch.float32, torch.bfloat16
+
+    def inputs(b, s, h, hk, hd, dt, window=0, edges=True):
+        q = torch.randn(b, 1, h, hd, device=dev, generator=g).to(dt)
+        k = torch.randn(b, s, hk, hd, device=dev, generator=g).to(dt)
+        v = torch.randn(b, s, hk, hd, device=dev, generator=g).to(dt)
+        lens = torch.randint(0, s, (b,), device=dev, generator=g, dtype=torch.int32)
+        if edges:   # 0, S - 1, past S and, with a window, a row that sees no key
+            fixed = [0, s - 1, s + 5] + ([s + window + 1] if window else [])
+            lens[:len(fixed)] = torch.tensor(fixed, dtype=torch.int32, device=dev)
+        return q, k, v, lens
+
+    err = 0.0
+    for shape, window in [((B, S, H, HK, HD), 0),       # the generate path's shape
+                          ((8, S, H, HK, HD), 256),     # sliding window
+                          ((6, 300, 8, 8, 64), 0),      # Hk = H, hd 64
+                          ((6, 77, 8, 2, 64), 0),
+                          ((6, 129, 4, 2, 16), 0),      # hd 16
+                          ((6, 300, 4, 1, 16), 40)]:
+        for dt in (f32, b16):
+            q, k, v, lens = inputs(*shape, dt, window)
+            e = close_err(kda.decode_attention(q, k, v, lens, window=window),
+                          ref.decode_attention_ref(q, k, v, lens, window=window),
+                          ATTN_TOL[dt])
+            log(f"decode_attention [b,s,h,hk,hd]={list(shape)} {dt} window={window}: "
+                f"max abs err {e:.3g} (tol {ATTN_TOL[dt]} + rel)")
+            err = max(err, e)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for dt in (b16, f32):
+        q, k, v, lens = inputs(B, S, H, HK, HD, dt, edges=False)
+        mask = (torch.arange(S, device=dev)[None, :] <= lens[:, None])[:, None, None, :]
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        ms = device_ms(lambda: kda.decode_attention(q, k, v, lens), 20)
+        plain = device_ms(lambda: ref.decode_attention_ref(q, k, v, lens), 5)
+        lib = device_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True), 20)
+        lib_err = float((sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True).transpose(1, 2)
+                         .float() - ref.decode_attention_ref(q, k, v, lens).float())
+                        .abs().max())
+        rows = int((lens.clamp(max=S - 1) + 1).sum())          # attended cache rows
+        es = q.element_size()
+        nbytes = rows * HK * HD * 2 * es + 2 * q.numel() * es + lens.numel() * 4
+        flops = 4 * rows * H * HD
+        bms, by = bound(nbytes, flops, bw, bf16)
+        log(f"decode_attention q[{B},1,{H},{HD}] k/v[{B},{S},{HK},{HD}] {dt}, {rows} "
+            f"attended rows, device time (profiler): kernel {ms:.4f} ms "
+            f"({nbytes / ms / 1e6:.0f} GB/s), plain "
+            f"{plain:.4f} ms, SDPA (bool mask, GQA) {lib:.4f} ms (its max abs err "
+            f"{lib_err:.3g}), bound {bms:.4f} ms ({by})")
+        if dt == b16:
+            out["decode_attention"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
+                bound_by=by, nbytes=nbytes, flops=flops,
+                shape=f"q[{B},1,{H},{HD}] k/v[{B},{S},{HK},{HD}] bf16, {rows} attended rows")
+    r = out["decode_attention"]
+    log(f"kernel decode_attention: {r['shape']} err={r['max_abs_err']:.3g} "
+        f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+        f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) bytes={r['nbytes']} "
+        f"flops={r['flops']}")
+    torch.cuda.empty_cache()
+    return out
+
+
+class RecordedScheduler(ContinuousBatchScheduler):
+    """The engine's scheduler, keeping each run and its finished requests so
+    that a phase can check that none failed or was retried: the scheduler
+    re-queues a request on RuntimeError and ends it as "" after
+    max_retries, which a run would otherwise never show."""
+    runs: list = []
+    current = None
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        RecordedScheduler.current = self
+
+    def run_to_completion(self, max_steps: int = 100_000):
+        done = super().run_to_completion(max_steps)
+        RecordedScheduler.runs.append((self, list(done)))
+        return done
+
+
+@contextlib.contextmanager
+def recorded_runs():
+    RecordedScheduler.runs = []
+    saved = engine_mod.ContinuousBatchScheduler
+    engine_mod.ContinuousBatchScheduler = RecordedScheduler
+    try:
+        yield RecordedScheduler.runs
+    finally:
+        engine_mod.ContinuousBatchScheduler = saved
+
+
+def check_runs(runs, sizes) -> tuple[int, int, int]:
+    """Every submitted request done, none failed, none retried. -> (prefill
+    steps, decode steps, generated tokens) over the runs."""
+    assert [len(done) for _, done in runs] == list(sizes), ([len(d) for _, d in runs], sizes)
+    reqs = [r for _, done in runs for r in done]
+    assert all(r.done and not r.failed for r in reqs), [(r.rid, r.failed) for r in reqs]
+    retries = sum(r.retries for r in reqs)
+    assert retries == 0, f"{retries} retries: a RuntimeError was swallowed by the scheduler"
+    return (sum(s.prefill_steps for s, _ in runs), sum(s.decode_steps for s, _ in runs),
+            sum(len(r.out_tokens) for r in reqs))
+
+
+def teacher_forced(runner, prompt: np.ndarray, out: list[int]) -> np.ndarray:
+    """Log-probs [len(out), V] along ``out`` through slot 0 of ``runner``."""
+    logits = [runner.prefill_into_slot(prompt, 0)]
+    lens = np.zeros(runner.max_slots, np.int32)
+    lens[0] = len(prompt)
+    nxt = np.zeros(runner.max_slots, np.int32)
+    for tok in out[:-1]:
+        nxt[0] = tok
+        logits.append(runner.decode(nxt, lens)[0])
+        lens = lens + 1
+    z = torch.from_numpy(np.stack(logits)).double()
+    return torch.log_softmax(z, dim=-1).numpy()
+
+
+def small_generate_cuda_vs_cpu(seed: int) -> None:
+    """The smoke-size model (3 layers, d 64, f32) generating on the card
+    against the same weights on the CPU, whose plain path the tests hold
+    against JAX: the texts are identical (up to a near-tie the CPU's own
+    log-probs show, should one part them), and the card's tokens
+    teacher-forced through both give log-probs within 1e-5."""
+    cfg = get_smoke(ORACLE).with_(vocab_size=TOKENIZER.vocab_size)
+    prompts = oracle_prompts(6, seed + 12, 16, 200)
+    gpu = InferenceEngine(cfg, seed=seed, max_slots=4, max_seq=256)
+    with recorded_runs() as runs:
+        n0 = kda.launches
+        texts_gpu = gpu.generate(prompts, max_new_tokens=32)
+        steps = check_runs(runs, [6])[1]
+        assert kda.launches - n0 == cfg.num_layers * steps, (kda.launches - n0, steps)
+        gpu_reqs = runs[0][1]
+    repro_torch.set_device("cpu")
+    try:
+        cpu = InferenceEngine(cfg, gpu.runner.params, max_slots=4, max_seq=256)
+        with recorded_runs() as runs:
+            texts_cpu = cpu.generate(prompts, max_new_tokens=32)
+            check_runs(runs, [6])
+            cpu_reqs = {r.rid: r for r in runs[0][1]}
+        err, parted = 0.0, []
+        for r in gpu_reqs:
+            lg = teacher_forced(gpu.runner, r.tokens, r.out_tokens)
+            lc = teacher_forced(cpu.runner, r.tokens, r.out_tokens)
+            err = max(err, float(np.abs(lg - lc).max()))
+            c = cpu_reqs[r.rid].out_tokens
+            if c != r.out_tokens:
+                i = next(j for j, (a, b) in enumerate(zip(c, r.out_tokens)) if a != b)
+                top2 = np.sort(lc[i])[-2:]
+                assert c[:i] == r.out_tokens[:i] and top2[1] - top2[0] < NEAR_TIE, \
+                    (r.rid, i, top2)
+                parted.append((r.rid, i, float(top2[1] - top2[0])))
+    finally:
+        repro_torch.set_device(None)
+    assert err <= 1e-5, err
+    assert parted or texts_gpu == texts_cpu
+    log(f"small generate ({cfg.num_layers} layers, d {cfg.d_model}, f32, 6 prompts x 32 "
+        f"tokens): card texts == CPU texts: {texts_gpu == texts_cpu} (parted at near-ties: "
+        f"{parted}); teacher-forced log-probs within {err:.3g}; {steps} decode steps")
+
+
+def generate_phase(args) -> dict:
+    """The generate path at full width, counted: sem_map over 64 records
+    with 64 new tokens each, then sem_agg_hierarchical over the notes,
+    through EngineModel -> InferenceEngine.generate -> the scheduler."""
+    full = get_config(ORACLE)
+    cfg = full.with_(vocab_size=TOKENIZER.vocab_size)
+    assert cfg.attn_impl == "auto"   # the shipped default: the kernels on the card
+    t0 = time.perf_counter()
+    engine = InferenceEngine(cfg, seed=args.seed, max_slots=GEN_SLOTS, max_seq=GEN_MAX_SEQ)
+    torch.cuda.synchronize()
+    runner = engine.runner
+    cache_b = sum(t.numel() * t.element_size() for t in flatten(runner.cache).values())
+    log(f"generate engine {ORACLE} (vocab cut to {cfg.vocab_size}): {GEN_SLOTS} slots x "
+        f"{GEN_MAX_SEQ} positions, KV cache {cache_b / 2**30:.2f} GiB, made in "
+        f"{time.perf_counter() - t0:.2f} s; allocated on the card "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    records = [{"claim": p} for p in oracle_prompts(64, args.seed + 11)]
+    model = EngineModel(engine, max_new_tokens=GEN_NEW)
+    engine.generate(["warm-up: cuBLAS and the kernels load"], max_new_tokens=2)
+
+    prefills, decodes = [], []
+    prefill, decode = runner.prefill_into_slot, runner.decode
+
+    def timed_prefill(tokens, slot):
+        t = time.perf_counter()
+        out = prefill(tokens, slot)          # returns numpy: the step has ended
+        prefills.append((len(tokens), time.perf_counter() - t))
+        assert np.isfinite(out).all()
+        return out
+
+    def timed_decode(tokens, lens):
+        active = sum(r is not None for r in RecordedScheduler.current.slot_req)
+        t = time.perf_counter()
+        out = decode(tokens, lens)
+        decodes.append((active, time.perf_counter() - t))
+        assert np.isfinite(out).all()
+        return out
+
+    runner.prefill_into_slot, runner.decode = timed_prefill, timed_decode
+    stats0 = dataclasses.replace(engine.stats)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with recorded_runs() as runs:
+        for _, mod in _KERNELS:
+            mod.launches = 0
+        t0 = time.perf_counter()
+        notes, st_map = sem_map(records, "a short note on {claim}", model)
+        map_s = time.perf_counter() - t0
+        map_tokens = engine.stats.generated_tokens - stats0.generated_tokens
+        t0 = time.perf_counter()
+        summary, st_agg = sem_agg_hierarchical(
+            [{"note": n} for n in notes], "summarize {note}", model, fanout=8)
+        agg_s = time.perf_counter() - t0
+        launches = {name: mod.launches for name, mod in _KERNELS}
+        n_prefill, n_decode, n_gen = check_runs(runs, [64, 8, 1])
+    del runner.prefill_into_slot, runner.decode      # the class's methods again
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    stats = {k: getattr(engine.stats, k) - getattr(stats0, k)
+             for k in ("lm_calls", "generated_tokens", "prompt_tokens")}
+    log(f"generate path: sem_map over 64 records {map_s:.2f} s ({map_tokens} tokens, "
+        f"{map_tokens / map_s:.1f} generated tokens/s), sem_agg_hierarchical (fanout 8, "
+        f"depth {st_agg['depth']}) {agg_s:.2f} s; {len(runs)} generate calls, {n_prefill} "
+        f"prefills, {n_decode} decode steps ({[s.decode_steps for s, _ in runs]}), "
+        f"launches {launches}, engine stats {stats}, peak memory {peak:.2f} GiB")
+    assert launches["decode_attention"] == cfg.num_layers * n_decode, (launches, n_decode)
+    assert launches["flash_attention"] == cfg.num_layers * n_prefill, (launches, n_prefill)
+    assert stats == {"lm_calls": 73, "generated_tokens": n_gen,
+                     "prompt_tokens": sum(len(r.tokens) for _, d in runs for r in d)}, stats
+    assert len(notes) == 64 and all(isinstance(n, str) for n in notes)
+    assert isinstance(summary, str) and st_agg["depth"] == 2
+    lengths = [len(r.out_tokens) for r in runs[0][1]]
+    log(f"sem_map generations: {map_tokens} tokens, per request min {min(lengths)} max "
+        f"{max(lengths)}; the first two notes begin {[n[:24] for n in notes[:2]]}")
+
+    sizes = [n for n, _ in prefills[:64]]
+    near = [dt for n, dt in prefills[:64] if 448 <= n <= 512]
+    ttft = statistics.median(near)
+    step32 = [dt for a, dt in decodes if a == GEN_SLOTS]
+    log(f"time to first token (prefill of 448..512 tokens, bucket 512; {len(near)} of the sem_map "
+        f"prompts of {min(sizes)}..{max(sizes)} tokens): median {ttft * 1e3:.2f} ms of "
+        f"[{min(near) * 1e3:.2f}, {max(near) * 1e3:.2f}]; decode step at {GEN_SLOTS} active "
+        f"slots: median {statistics.median(step32) * 1e3:.2f} ms over {len(step32)} steps "
+        f"({GEN_SLOTS / statistics.median(step32):.0f} tokens/s while all slots decode)")
+
+    # one decode step at 32 active slots under the profiler
+    toks = np.random.default_rng(args.seed).integers(0, 256, GEN_SLOTS).astype(np.int32)
+    lens = np.full(GEN_SLOTS, 520, np.int32)
+    decode(toks, lens)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode(toks, lens)
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = sorted(((e.self_device_time_total / 1e3, e.key, e.count) for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
+    busy = sum(ms for ms, _, _ in dev)
+    if busy > 0:
+        attn = sum(ms for ms, k, _ in dev if "decode_attention_kernel" in k)
+        gemm = sum(ms for ms, k, _ in dev if any(w in k.lower() for w in
+                                                  ("nvjet", "gemm", "xmma", "cutlass")))
+        log(f"decode step [{GEN_SLOTS} slots, lens 520] under the profiler: wall {wall:.2f} ms,"
+            f" device busy {busy:.3f} ms, idle share {1 - busy / wall:.4f}, "
+            f"{sum(c for _, _, c in dev)} device ops; GEMMs {gemm:.3f} ms (share of busy "
+            f"{gemm / busy:.4f}), decode_attention {attn:.3f} ms ({attn / busy:.4f}), rest "
+            f"{busy - gemm - attn:.3f} ms ({(busy - gemm - attn) / busy:.4f})")
+        log("decode step top kernels: " + "; ".join(
+            f"{k[:60]} x{c} {ms:.3f} ms" for ms, k, c in dev[:8]))
+    else:
+        log("decode step under the profiler: no device time recorded (not measured)")
+    prompts = [r.tokens for r in sorted(runs[0][1], key=lambda r: r.rid)[:32]]
+    return dict(engine=engine, prompts=prompts, launches=launches)
+
+
+def _chunked_attend(q, k, v, mask, block: int = 128):
+    """A second correct plain attention: the online softmax over 128-key
+    blocks, p rounded to the V type per block (as the decode kernel does
+    per 128-row tile)."""
+    h = q.shape[2]
+    k, v = attention._repeat_kv(k, h), attention._repeat_kv(v, h)
+    b, sq, _, hd = q.shape
+    mask = mask.expand(b, 1, sq, k.shape[1])
+    m = torch.full((b, h, sq), ref.NEG_INF, device=q.device)
+    l = torch.zeros((b, h, sq), device=q.device)
+    o = torch.zeros((b, sq, h, hd), device=q.device)
+    for s0 in range(0, k.shape[1], block):
+        sc = torch.einsum("bqhd,bshd->bhqs", q.float(), k[:, s0:s0 + block].float()) \
+            * ref.attn_scale(hd)
+        sc = torch.where(mask[..., s0:s0 + block], sc, ref.NEG_INF)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        o = o * alpha.transpose(1, 2)[..., None] + torch.einsum(
+            "bhqs,bshd->bqhd", p.to(v.dtype).float(), v[:, s0:s0 + block].float())
+        m = m_new
+    return (o / l.clamp(min=1e-30).transpose(1, 2)[..., None]).to(v.dtype)
+
+
+@torch.inference_mode()
+def forced_decode(cfg, params, prompt: torch.Tensor, forced=None):
+    """Prefill ``prompt`` [B, T0] into a fresh cache, then 63 decode steps:
+    greedy when ``forced`` is None, else fed ``forced`` [B, 64].  ->
+    (log-probs [B, 64, V] f32, the tokens fed [B, 64])."""
+    b, t0 = prompt.shape
+    cache = registry.init_cache(cfg, b, t0 + GEN_NEW, device=prompt.device)
+    logits, _ = registry.prefill(cfg, params, prompt, cache, last_only=True)
+    lps = [torch.log_softmax(logits[:, -1].float(), dim=-1)]
+    toks = [lps[-1].argmax(-1) if forced is None else forced[:, 0]]
+    for i in range(GEN_NEW - 1):
+        logits, _ = registry.decode_step(cfg, params, toks[-1][:, None], cache, t0 + i)
+        lps.append(torch.log_softmax(logits[:, 0].float(), dim=-1))
+        toks.append(lps[-1].argmax(-1) if forced is None else forced[:, i + 1])
+    return torch.stack(lps, 1), torch.stack(toks, 1)
+
+
+def generate_agreement(gen: dict) -> None:
+    """The kernel path of the generate path against the plain path
+    (attn_impl="full") on the same weights, teacher-forced along the kernel
+    path's own greedy tokens: 32 sem_map prompts cut to one length, 64
+    generated positions each.  bf16 through 28 layers, f32 through
+    GEN_F32_LAYERS; beside them a second correct plain path (the chunked
+    online softmax) and two gross faults of the plain path."""
+    engine = gen["engine"]
+    cfg, params = engine.cfg, engine.runner.params
+    t0 = min(len(p) for p in gen["prompts"])
+    prompt = torch.from_numpy(np.stack([p[:t0] for p in gen["prompts"]]).astype(np.int64)).cuda()
+    kn0 = (kda.launches, kfa.launches)
+    lp = {}
+    lp["kernel"], toks = forced_decode(cfg, params, prompt)
+    assert (kda.launches - kn0[0], kfa.launches - kn0[1]) == \
+        (cfg.num_layers * (GEN_NEW - 1), cfg.num_layers)
+    plain_cfg = cfg.with_(attn_impl="full")
+    lp["plain"], _ = forced_decode(plain_cfg, params, prompt, toks)
+    controls = [("chunked plain", _chunked_attend, False),
+                ("p in fp8", functools.partial(_faulty_attend, p_dtype=torch.float8_e4m3fn),
+                 True),
+                ("kv-head h % Hk", functools.partial(_faulty_attend, kv_head_mod=True), True)]
+    for name, attend, _ in controls:
+        with plain_attention(attend):
+            lp[name], _ = forced_decode(plain_cfg, params, prompt, toks)
+    assert all(bool(torch.isfinite(v).all()) for v in lp.values())
+    dist = {k: float((v - lp["plain"]).abs().max()) for k, v in lp.items() if k != "plain"}
+    # f32, a few layers, 8 sequences
+    n = min(GEN_F32_LAYERS, cfg.num_layers)
+    cfg32 = cfg.with_(num_layers=n, dtype="float32")
+    p32 = {**params, "layers": {k: ({kk: vv[:n] for kk, vv in v.items()}
+                                    if isinstance(v, dict) else v[:n])
+                                for k, v in params["layers"].items()}}
+    k32, toks32 = forced_decode(cfg32, p32, prompt[:8])
+    f32_plain, _ = forced_decode(cfg32.with_(attn_impl="full"), p32, prompt[:8], toks32)
+    d32 = float((k32 - f32_plain).abs().max())
+    top2 = f32_plain.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 1e-3
+    same = (k32.argmax(-1) == f32_plain.argmax(-1))[clear]
+    log(f"generate agreement, teacher-forced over {prompt.shape[0]} sequences of {t0} prompt "
+        f"tokens ({GEN_NEW} positions x {cfg.vocab_size} log-probs), max abs distance from "
+        f"the plain path: bf16 {cfg.num_layers} layers (tol {GEN_BF16_LOGPROB_TOL}): "
+        + ", ".join(f"{k} {d:.4g}" for k, d in dist.items())
+        + f"; f32 {n} layers over 8 sequences (tol {GEN_F32_LOGPROB_TOL}): kernel {d32:.3g}, "
+        f"argmax identical at {int(same.sum())}/{int(clear.sum())} positions whose plain "
+        f"margin > 0.001")
+    assert dist["kernel"] <= GEN_BF16_LOGPROB_TOL and dist["chunked plain"] <= \
+        GEN_BF16_LOGPROB_TOL, dist
+    assert all(dist[name] > GEN_BF16_LOGPROB_TOL for name, _, caught in controls if caught), \
+        dist
+    assert d32 <= GEN_F32_LOGPROB_TOL and bool(same.all()) and int(clear.sum()) > 0, d32
+    del lp, k32, f32_plain
+    torch.cuda.empty_cache()
+
+
+def paged_phase(gen: dict, seed: int) -> int:
+    """Paged decode against contiguous decode at full width: 8 rows, pages
+    of 16 positions, 48 steps (3 pages a row) from an empty cache on the
+    same random tokens; the paged steps' decode_attention launches are
+    counted."""
+    engine = gen["engine"]
+    cfg, params = engine.cfg, engine.runner.params
+    b, ps, steps, maxp = 8, 16, 48, 8
+    toks = torch.from_numpy(np.random.default_rng(seed + 13).integers(
+        0, 256, (b, steps)).astype(np.int64)).cuda()
+    with torch.inference_mode():
+        cache = registry.init_cache(cfg, b, maxp * ps)
+        lp_c = [torch.log_softmax(registry.decode_step(cfg, params, toks[:, t:t + 1], cache,
+                                                       t)[0][:, 0], dim=-1)
+                for t in range(steps)]
+    alloc = paged.PageAllocator(num_pages=b * maxp, page_size=ps, max_slots=b,
+                                max_pages_per_slot=maxp)
+    pages = paged.init_pages(cfg, b * maxp, ps)
+    lens = np.zeros(b, np.int32)
+    n0 = kda.launches
+    lp_p = []
+    for t in range(steps):
+        for s in range(b):
+            alloc.ensure(s, t + 1)
+        logits, pages = paged.paged_decode_step(cfg, params, toks[:, t:t + 1], pages,
+                                                alloc.table, lens)
+        lp_p.append(torch.log_softmax(logits[:, 0], dim=-1))
+        lens = lens + 1
+    torch.cuda.synchronize()
+    launches = kda.launches - n0
+    d = float((torch.stack(lp_p) - torch.stack(lp_c)).abs().max())
+    log(f"paged decode ({b} rows, {steps} steps, pages of {ps}): max abs log-prob distance "
+        f"from contiguous decode {d:.3g} (tol 1e-6); decode_attention launches of the "
+        f"paged steps {launches}")
+    assert launches == cfg.num_layers * steps and d <= 1e-6, (launches, d)
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -863,7 +1370,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA device; none is available")
     torch.manual_seed(args.seed)
-    t_start = time.perf_counter()
+    t_start = _LAP[0] = time.perf_counter()
 
     # 1. device + build
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -882,6 +1389,8 @@ def main() -> None:
             for line in text.read_text().splitlines():
                 if "Used" in line:
                     log(f"  {name}: {line.strip()}")
+
+    lap("1 device and build")
 
     # 2. realistic retrieval: corpus, queries, three indexes
     if args.rows != 1_000_000:
@@ -910,9 +1419,12 @@ def main() -> None:
     log(f"ivf store [{N_CLUSTERS}, {L}, {DIM}] fp32 = "
         f"{N_CLUSTERS * L * DIM * 4 / 2**30:.2f} GiB on the card")
 
+    lap("2 retrieval indexes")
+
     # 3. kernels against their plain versions
     kres = kernel_phase(args, indexes["exact"], indexes["ivf"], indexes["ivf_int8"],
                         queries, bw, fp32)
+    lap("3 retrieval kernels")
 
     # 4. the main path, counted
     torch.cuda.reset_peak_memory_stats()
@@ -935,21 +1447,52 @@ def main() -> None:
     assert rec["ivf_int8"] >= rec["ivf"] - 0.01, rec
     del indexes, results
     torch.cuda.empty_cache()
+    lap("4 retrieval main path")
 
     # 5. the recall floor on the hard corpus
     hard_recall(args)
     torch.cuda.empty_cache()
+    lap("5 hard corpus")
 
     # 6. small end to end, card against CPU
     small_end_to_end()
+    lap("6 small end to end")
 
     # 7. the oracle's kernels against their plain versions
     kres.update(oracle_kernel_phase(args, bw, fp32, bf16))
+    lap("7 oracle kernels")
 
     # 8. the LLM oracle at full width, counted
     oracle_launches = oracle_phase(args)
     launches["flash_attention"] = oracle_launches["flash_attention"]
     launches["rmsnorm"] = oracle_launches["rmsnorm"]
+    lap("8 oracle")
+
+    # 9. the decode kernel against its plain version
+    kres.update(decode_kernel_phase(args, bw, bf16))
+    lap("9 decode kernel")
+
+    # 10. small generate, card against CPU
+    small_generate_cuda_vs_cpu(args.seed)
+    lap("10 small generate")
+
+    # 11. the generate path at full width, counted (earlier phases' engines
+    # are freed first, so that its peak memory is its own)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = generate_phase(args)
+    launches["decode_attention"] = gen["launches"]["decode_attention"]
+    lap("11 generate path")
+
+    # 12. the generate path's kernel path against its plain path
+    generate_agreement(gen)
+    lap("12 generate agreement")
+
+    # 13. paged decode against contiguous decode
+    paged_phase(gen, args.seed)
+    del gen
+    torch.cuda.empty_cache()
+    lap("13 paged decode")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"device: {smi}")

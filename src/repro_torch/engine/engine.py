@@ -1,16 +1,17 @@
 """InferenceEngine: the facade over the model that the semantic operators
 consume, through ``core.backends.torch_engine.EngineModel``.
 
-Three of the reference's four primitives, the ones served by one
-teacher-forced forward pass over a padded batch:
+Four primitives, as the reference's:
 
+  generate(prompts)          -> free-text generations            (sem_map/agg)
   predicate(prompts)         -> bool + True-vs-False probability (sem_filter/join;
                                 the probability is the cascade proxy score)
   compare(prompts)           -> A/B choice                       (sem_topk)
   choose(prompts, n_opts)    -> argmax over the option digit ids (sem_group_by)
 
-``generate`` runs through the continuous-batching scheduler in the
-reference; it arrives with the generate path (slice 2b).
+Predicate/compare/choose need one output token, so they are served by one
+teacher-forced forward pass over a padded batch; generate() runs through
+the continuous-batching scheduler.
 """
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.data.tokenizer import TOKENIZER
 from repro_torch.device import current_device
 from repro_torch.engine.runner import ModelRunner
+from repro_torch.engine.sampler import Sampler
+from repro_torch.engine.scheduler import ContinuousBatchScheduler, Request
 from repro_torch.models import registry
 
 
@@ -44,7 +47,7 @@ class InferenceEngine:
     without them, random weights are drawn there from ``seed``."""
 
     def __init__(self, cfg: ModelConfig, params=None, *, seed: int = 0,
-                 max_seq: int = 512):
+                 max_slots: int = 8, max_seq: int = 512, temperature: float = 0.0):
         self.cfg = cfg
         device = current_device()
         if params is None:
@@ -52,8 +55,27 @@ class InferenceEngine:
             params = registry.init_params(cfg, gen)
         else:
             params = _to(params, device)
-        self.runner = ModelRunner(cfg, params, max_seq=max_seq)
+        self.runner = ModelRunner(cfg, params, max_slots=max_slots, max_seq=max_seq)
+        self.sampler = Sampler(temperature=temperature, seed=seed)
         self.stats = EngineStats()
+
+    # ------------------------------------------------------------------
+    def generate(self, prompts: list[str], *, max_new_tokens: int = 48,
+                 fault_hook=None) -> list[str]:
+        sched = ContinuousBatchScheduler(self.runner, sampler=self.sampler,
+                                         fault_hook=fault_hook)
+        for i, p in enumerate(prompts):
+            toks = np.asarray(TOKENIZER.encode(p)[: self.runner.max_seq - max_new_tokens - 1],
+                              np.int32)
+            sched.submit(Request(rid=i, tokens=toks, max_new_tokens=max_new_tokens,
+                                 stop_id=TOKENIZER.eos_id))
+        done = sched.run_to_completion()
+        self.stats.add(len(prompts), sum(len(r.tokens) for r in done),
+                       sum(len(r.out_tokens) for r in done))
+        by_id = {r.rid: r for r in done}
+        return [TOKENIZER.decode([t for t in by_id[i].out_tokens if t != TOKENIZER.eos_id])
+                if i in by_id and not by_id[i].failed else ""
+                for i in range(len(prompts))]
 
     # ------------------------------------------------------------------
     def _last_logits(self, prompts: list[str]) -> np.ndarray:

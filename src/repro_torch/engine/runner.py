@@ -1,32 +1,103 @@
-"""The model runner of the inference engine: one forward pass per scoring
-batch.
+"""Model steps for the inference engine.
 
-The reference's ``ModelRunner`` also owns a KV cache and jitted prefill /
-decode steps for generation; those arrive with the generate path (slice
-2b), so this runner allocates no cache.  PyTorch runs eagerly, so there is
-nothing to compile.
+One ``ModelRunner`` owns the params and a KV cache of ``max_slots`` slots.
+Prefill is bucketed by prompt length (power-of-two padding), as the
+reference's, whose buckets bound its compilations; decode is one step
+over the whole slot batch with per-slot cache lengths.  PyTorch runs
+eagerly, so there is nothing to compile, and the cache is written in
+place: a prefill writes its slot, a decode step one position per slot.
+
+A fault of the device inside a step (an illegal address in a kernel, a
+failed launch inside torch) surfaces as a torch ``RuntimeError`` at the
+step's copy to the host, and leaves the CUDA context unusable, so a retry
+cannot succeed.  The steps re-raise it as ``KernelError``, which the
+scheduler's fault path does not catch.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels._build import KernelError
 from repro_torch.models import registry
+
+_DEVICE_FAULT_PREFIXES = ("CUDA error", "CUDA driver error")
+
+
+def _bucket(n: int, minimum: int = 16) -> int:
+    b = minimum
+    while b < n:
+        b *= 2
+    return b
+
+
+def _is_device_fault(err: RuntimeError) -> bool:
+    accel = getattr(torch, "AcceleratorError", None)
+    return (accel is not None and isinstance(err, accel)) or \
+        str(err).startswith(_DEVICE_FAULT_PREFIXES)
+
+
+@contextlib.contextmanager
+def _device_faults():
+    """Re-raise a device fault as ``KernelError``; other errors pass as they are."""
+    try:
+        yield
+    except RuntimeError as err:
+        if _is_device_fault(err):
+            raise KernelError(f"device fault in a model step: {err}") from err
+        raise
 
 
 class ModelRunner:
-    """Owns the params of one model; scores whole token sequences."""
+    """Owns the params and the slot cache of one model."""
 
-    def __init__(self, cfg: ModelConfig, params, *, max_seq: int):
+    def __init__(self, cfg: ModelConfig, params, *, max_slots: int = 8, max_seq: int):
         self.cfg = cfg
         self.params = params
+        self.max_slots = max_slots
         self.max_seq = max_seq
         self.device = params["embed"]["embedding"].device
+        self.cache = registry.init_cache(cfg, max_slots, max_seq, device=self.device)
 
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(a, np.int64)).to(self.device)
+
+    # -- prefill one request into a slot --------------------------------
+    @torch.inference_mode()
+    def prefill_into_slot(self, tokens: np.ndarray, slot: int) -> np.ndarray:
+        """tokens: [T] int32. Returns last-token logits [V] (f32).
+
+        The slot's cache is zeroed and its first ``bucket`` positions
+        written, as the reference writes a fresh one-row cache over it."""
+        t = int(tokens.shape[0])
+        assert t <= self.max_seq, f"prompt {t} > max_seq {self.max_seq}"
+        bucket = min(_bucket(t), self.max_seq)
+        padded = np.zeros((1, bucket), np.int32)
+        padded[0, :t] = tokens
+        row = {"self": {name: c[:, slot:slot + 1] for name, c in self.cache["self"].items()}}
+        with _device_faults():
+            for c in row["self"].values():
+                c.zero_()
+            logits, _ = registry.prefill(self.cfg, self.params, self._tensor(padded), row)
+            return logits[0, t - 1].float().cpu().numpy()
+
+    # -- one decode step over all slots ----------------------------------
+    @torch.inference_mode()
+    def decode(self, tokens: np.ndarray, lens: np.ndarray) -> np.ndarray:
+        """tokens: [slots] int32 (next input per slot); lens: [slots] int32.
+        Returns logits [slots, V] (f32)."""
+        with _device_faults():
+            lens_t = torch.from_numpy(np.asarray(lens, np.int32)).to(self.device)
+            logits, _ = registry.decode_step(self.cfg, self.params,
+                                             self._tensor(tokens[:, None]), self.cache, lens_t)
+            return logits[:, 0].float().cpu().numpy()
+
+    # -- whole-sequence scoring (no cache) -------------------------------
     @torch.inference_mode()
     def logprobs(self, tokens: np.ndarray) -> np.ndarray:
         """tokens: [B,T] -> log-probs [B,T,V] (teacher-forced), f32."""
-        t = torch.from_numpy(np.asarray(tokens, np.int64)).to(self.device)
-        logits, _ = registry.forward(self.cfg, self.params, t)
+        logits, _ = registry.forward(self.cfg, self.params, self._tensor(tokens))
         return torch.log_softmax(logits.float(), dim=-1).cpu().numpy()

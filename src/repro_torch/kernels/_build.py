@@ -22,12 +22,22 @@ import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("similarity", "ivf_scan", "ivf_scan_q", "flash_attention", "rmsnorm")
+SOURCES = ("similarity", "ivf_scan", "ivf_scan_q", "flash_attention", "rmsnorm",
+           "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+
+
+class KernelError(Exception):
+    """A kernel that could not be built or launched.
+
+    Deliberately not a ``RuntimeError``: the engine's scheduler re-queues a
+    request on ``RuntimeError`` (the reference's fault path for a failed
+    worker) and in the end returns an empty generation for it, which would
+    hide a broken kernel behind a run that exits 0."""
 
 
 def nvcc() -> str:
@@ -36,8 +46,8 @@ def nvcc() -> str:
         return found
     path = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
     if not path.exists():
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build repro_torch's kernels")
+        raise KernelError("nvcc not found: the CUDA toolkit is needed to "
+                          "build repro_torch's kernels")
     return str(path)
 
 
@@ -51,8 +61,8 @@ def library_path(name: str) -> Path:
 
 def build() -> float:
     """Compile every kernel library that is not built yet, one ``nvcc`` per
-    source, all started together.  Raises with the compiler's
-    output if one fails.  -> wall seconds spent."""
+    source, all started together.  Raises ``KernelError`` with the
+    compiler's output if one fails.  -> wall seconds spent."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
@@ -74,7 +84,7 @@ def build() -> float:
         else:
             os.replace(tmp, so)        # atomic: a reader never sees half a file
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise KernelError("nvcc failed for " + "\n".join(failed))
     return time.perf_counter() - t0
 
 
@@ -102,11 +112,12 @@ def function(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
 
 
 def check(rc: int, name: str, what: str) -> None:
-    """Raise on a CUDA error code returned by a kernel's C entry point."""
+    """Raise ``KernelError`` on a CUDA error code returned by a kernel's C
+    entry point."""
     if rc != 0:
         msg = function(name, "repro_cuda_error_string", [ctypes.c_int])
         msg.restype = ctypes.c_char_p
-        raise RuntimeError(f"{what}: CUDA error {rc} ({msg(rc).decode()})")
+        raise KernelError(f"{what}: CUDA error {rc} ({msg(rc).decode()})")
 
 
 def require(t, what: str, dtype, ndim: int, device=None) -> None:

@@ -13,8 +13,8 @@ Two boundaries, as in the reference:
   placed on ``repro_torch.current_device()`` (CUDA unless the caller chose
   the CPU), tensors stay where they are, so an index that keeps its store
   on the card passes it without a copy; results come back as numpy arrays;
-* the model-facing entries (:func:`flash_attention`, :func:`rmsnorm`) take
-  and return tensors on their device, open no span and do not synchronize,
+* the model-facing entries (:func:`flash_attention`, :func:`rmsnorm`,
+  :func:`decode_attention`) take and return tensors on their device, open no span and do not synchronize,
   so a layer's activations never leave the card.
 
 Nothing here falls back: a kernel that fails to build or launch raises.
@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import current_device
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ivf_scan as _ivf
 from repro_torch.kernels import ivf_scan_q as _ivfq
@@ -107,6 +108,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if _resolve(impl, q) == "ref":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     return _fa.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lens: torch.Tensor, *, window: int = 0,
+                     impl: str | None = None) -> torch.Tensor:
+    """One new token per sequence against its cache: q [B,1,H,hd], k/v
+    [B,S,Hk,hd], lens [B] -> [B,1,H,hd] on the tensors' device; torch
+    contract ``ref.decode_attention_ref``."""
+    if _resolve(impl, q) == "ref":
+        return ref.decode_attention_ref(q, k, v, lens, window=window)
+    return _da.decode_attention(q, k, v, lens, window=window)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5,

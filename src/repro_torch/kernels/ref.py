@@ -67,6 +67,32 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(v.dtype)
 
 
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         lens: torch.Tensor, *, window: int = 0) -> torch.Tensor:
+    """q:[B,1,H,hd], k/v:[B,S,Hk,hd], lens:[B] -> [B,1,H,hd] in ``v.dtype``.
+
+    Row b attends to cache positions ``0..lens[b]`` inclusive (the new
+    token already written), among the S that exist, so ``lens[b] >= S``
+    means all S.  ``window > 0`` also requires ``lens[b] - k_pos < window``,
+    the mask of the model's decode; ``window=0`` is the reference's
+    contract.  Scores and softmax in f32; p is rounded to ``v.dtype`` before
+    the PV product, as in :func:`flash_attention_ref`."""
+    h, hk = q.shape[2], k.shape[2]
+    if hk != h:
+        k = k.repeat_interleave(h // hk, dim=2)
+        v = v.repeat_interleave(h // hk, dim=2)
+    s = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float()) * attn_scale(q.shape[-1])
+    lens = torch.as_tensor(lens, device=q.device).long()
+    k_pos = torch.arange(k.shape[1], device=q.device)
+    valid = k_pos[None, :] <= lens[:, None]
+    if window:
+        valid = valid & (lens[:, None] - k_pos[None, :] < window)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqs,bshd->bqhd", p.to(v.dtype).float(), v.float())
+    return out.to(v.dtype)
+
+
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5
                 ) -> torch.Tensor:
     """x:[..., d], scale:[d] -> like ``x``; statistics and scaling in f32."""

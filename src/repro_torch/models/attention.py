@@ -6,8 +6,10 @@ unchanged: ``"pallas"`` (the reference's Pallas flash kernel on a TPU) means
 the hand-written CUDA kernel here, reached through ``ops.flash_attention``.
 ``"auto"`` launches that kernel for activations on the card; for
 activations on the CPU it keeps the reference's rule: ``"chunked"`` past
-``8 * attn_q_chunk`` positions, else ``"full"``.  Cross attention and the decode-against-cache functions arrive
-with the generate path (slice 2b).
+``8 * attn_q_chunk`` positions, else ``"full"``.  The decode step against a
+KV cache (:func:`decode_self_attention`) follows the same rule with the
+``decode_attention`` kernel.  Cross attention arrives with the families
+that use it (ROADMAP item 10).
 """
 from __future__ import annotations
 
@@ -171,3 +173,51 @@ def _kv_chunked_attention(q, k, v, *, cfg: ModelConfig, causal: bool):
         m = m_new
     o = o / torch.clamp(l.transpose(1, 2)[..., None], min=1e-30)
     return o.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Decode-step attention against a KV cache
+# ---------------------------------------------------------------------------
+
+
+def decode_self_attention(params, x, k_cache, v_cache, cache_len, *, cfg: ModelConfig):
+    """x: [B,1,D]; caches: [B,Smax,Hk,hd]. Writes the new K/V at ``cache_len``
+    in place (a row with ``cache_len >= Smax`` writes nothing, as the
+    reference's ``mode="drop"``).
+
+    ``cache_len`` may be a scalar (uniform batch) or a [B] vector
+    (continuous batching: per-slot lengths).  The attention is
+    ``decode_attend`` under the model's ``sliding_window``.
+    Returns (out [B,1,D], k_cache, v_cache)."""
+    if cfg.decode_cp:
+        raise NotImplementedError(
+            "context-parallel decode (cfg.decode_cp) is not ported yet (ROADMAP item 12)")
+    b, s_max = x.shape[0], k_cache.shape[1]
+    lens = torch.as_tensor(cache_len, dtype=torch.int32, device=x.device).expand(b)
+    q, k_new, v_new = project_qkv(params, x, cfg=cfg, positions=lens[:, None])
+    # the write is dropped for rows at lens >= Smax: such a row writes back
+    # what position Smax - 1 holds, so no index leaves the cache and the
+    # host never has to look at lens
+    bidx = torch.arange(b, device=x.device)
+    keep = (lens < s_max)[:, None, None]
+    pos = lens.clamp(max=s_max - 1).long()
+    k_cache[bidx, pos] = torch.where(keep, k_new[:, 0].to(k_cache.dtype), k_cache[bidx, pos])
+    v_cache[bidx, pos] = torch.where(keep, v_new[:, 0].to(v_cache.dtype), v_cache[bidx, pos])
+    out = decode_attend(q, k_cache, v_cache, lens, window=cfg.sliding_window, cfg=cfg)
+    return out_proj(params, out), k_cache, v_cache
+
+
+def decode_attend(q, k, v, lens, *, window: int, cfg: ModelConfig):
+    """One new token per row against its keys: q [B,1,H,hd], k/v
+    [B,S,Hk,hd], positions ``0..lens[b]`` and, with ``window > 0``, also
+    ``lens[b] - pos < window``.  On the card under ``attn_impl`` ``"auto"``
+    or ``"pallas"`` the ``decode_attention`` kernel; otherwise, and always
+    on the CPU, ``gqa_attend`` under that mask."""
+    if q.is_cuda and cfg.attn_impl in ("auto", "pallas"):
+        from repro_torch.kernels import ops as kops
+        return kops.decode_attention(q.contiguous(), k, v, lens.contiguous(), window=window)
+    k_pos = torch.arange(k.shape[1], device=q.device)
+    k_valid = k_pos[None, :] <= lens[:, None]
+    if window:
+        k_valid = k_valid & (lens[:, None] - k_pos[None, :] < window)
+    return gqa_attend(q, k, v, k_valid[:, None, None, :])

@@ -1,19 +1,23 @@
 """Family dispatch: one uniform interface over the model families.
 
-    param_specs(cfg)                 -> SpecTree
-    init_params(cfg, generator)      -> params on the generator's device
-    forward(cfg, params, tokens)     -> (logits, aux)
+    param_specs(cfg)                                  -> SpecTree
+    init_params(cfg, generator)                       -> params on the generator's device
+    forward(cfg, params, tokens)                      -> (logits, aux)
+    cache_specs(cfg, batch, max_seq)                  -> SpecTree
+    init_cache(cfg, batch, max_seq)                   -> zeroed KV cache
+    prefill(cfg, params, tokens, cache)               -> (logits, cache)
+    decode_step(cfg, params, tokens, cache, cache_len) -> (logits, cache)
 
 Only the ``dense`` family is ported; every other family raises (ROADMAP
-item 10).  ``cache_specs`` / ``prefill`` / ``decode_step`` arrive with the
-generate path (slice 2b).
+item 10).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.common import SpecTree, init_params as _init
+from repro_torch.common import SpecTree, init_params as _init, unflatten
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import current_device
 from repro_torch.models import transformer
 
 _FAMILY = {"dense": transformer}
@@ -36,3 +40,23 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
 
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor):
     return module_for(cfg).forward(params, tokens, cfg=cfg)
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> SpecTree:
+    return module_for(cfg).cache_specs(cfg, batch, max_seq)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *, device=None) -> dict:
+    """A zeroed cache on ``device`` (default ``repro_torch.current_device()``)."""
+    device = current_device() if device is None else device
+    specs = cache_specs(cfg, batch, max_seq)
+    return unflatten({p: torch.zeros(s.shape, dtype=s.dtype, device=device)
+                      for p, s in specs.items()})
+
+
+def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache, *, last_only=False):
+    return module_for(cfg).prefill(params, tokens, cache, cfg=cfg, last_only=last_only)
+
+
+def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, cache, cache_len):
+    return module_for(cfg).decode_step(params, tokens, cache, cache_len, cfg=cfg)

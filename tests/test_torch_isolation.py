@@ -1,8 +1,9 @@
 """The port stands alone: no module of ``repro_torch`` and not
 ``chip_smoke.py`` imports ``jax`` or the ``repro`` package, so the port runs
 on a machine that has neither.  The guarded run imports every module of the
-port and drives retrieval and the LLM oracle (predicate, LLM rerank) on the
-CPU."""
+port and drives retrieval, the LLM oracle (predicate, LLM rerank) and the
+generate path (``EngineModel.generate``, ``sem_map``, ``sem_agg``, a paged
+decode step) on the CPU."""
 import os
 import re
 import subprocess
@@ -51,6 +52,25 @@ _GUARDED = textwrap.dedent("""
     hits, st = sem_search(idx, texts[7], emb, k=4, n_rerank=2, rerank_model=model,
                           records=recs, rerank_langex="{claim}")
     assert len(hits) == 2 and st["reranked"] == 2, (hits, st)
+    gen = EngineModel(InferenceEngine(cfg.with_(attn_impl="auto"), seed=0, max_slots=2,
+                                      max_seq=128), max_new_tokens=5)
+    texts = gen.generate(["one", "two", "three"])
+    assert len(texts) == 3 and all(isinstance(t, str) for t in texts), texts
+    assert gen.engine.stats.generated_tokens > 0, gen.engine.stats
+    from repro_torch.core.operators.agg import sem_agg_hierarchical
+    from repro_torch.core.operators.mapex import sem_map
+    notes, st = sem_map(recs[:4], "a note on {claim}", gen)
+    assert len(notes) == 4 and st["operator"] == "sem_map", (notes, st)
+    summary, st = sem_agg_hierarchical(recs[:5], "summarize {claim}", gen, fanout=2)
+    assert isinstance(summary, str) and st["depth"] == 3, st
+    import numpy as np
+    from repro_torch.engine import paged
+    alloc = paged.PageAllocator(num_pages=4, page_size=4, max_slots=1, max_pages_per_slot=4)
+    alloc.ensure(0, 1)
+    logits, _ = paged.paged_decode_step(cfg, gen.engine.runner.params, np.zeros((1, 1)),
+                                        paged.init_pages(cfg, 4, 4), alloc.table,
+                                        np.zeros(1))
+    assert logits.shape == (1, 1, cfg.vocab_size), logits.shape
     assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro") for m in sys.modules)
     print("modules", len(names))
 """)
@@ -62,7 +82,7 @@ def test_port_imports_and_runs_with_jax_and_repro_refused():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
     n = int(out.stdout.split("modules")[-1])
-    assert n >= 51          # every module of slices 1 and 2a was imported
+    assert n >= 57          # every module of slices 1, 2a and 2b was imported
 
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|repro)(?:[.\s,]|$)", re.M)

@@ -397,6 +397,110 @@ def test_flash_attention_rows_no_key_may_see_match_the_contract():
                                rtol=1e-5, atol=1e-5)
 
 
+# decode: b, s, h, hk, hd; S 77, 129 and 300 are no multiple of any tile
+DECODE_SHAPES = [(4, 64, 4, 2, 16), (3, 77, 8, 2, 64), (4, 129, 4, 4, 32),
+                 (3, 300, 8, 2, 16), (3, 96, 24, 8, 128)]
+
+
+def _decode_inputs(b, s, h, hk, hd, seed):
+    """q, k, v and lens holding 0, S - 1 and a value past S (then random)."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, s, b).astype(np.int32)
+    lens[:3] = [0, s - 1, s + 5]
+    return (rng.normal(size=(b, 1, h, hd)).astype(np.float32),
+            rng.normal(size=(b, s, hk, hd)).astype(np.float32),
+            rng.normal(size=(b, s, hk, hd)).astype(np.float32), lens)
+
+
+@pytest.mark.parametrize("shape", DECODE_SHAPES)
+@pytest.mark.parametrize("name,tdt,jdt,tol", ATTN_DTYPES)
+def test_decode_attention_plain_matches_jax_contract_and_kernel(shape, name, tdt, jdt,
+                                                                tol):
+    """The port's plain version (what ``ops`` runs on the CPU) against the jnp
+    contract on every row, and against the Pallas kernel in interpret mode
+    (block_k 32) on the rows it computes to the contract: a row with
+    lens >= S when S is no multiple of block_k counts the kernel's
+    zero-padded keys (ROADMAP, queue 3), so it is held to the contract
+    alone."""
+    q, k, v, lens = _decode_inputs(*shape, seed=sum(shape))
+    got = tops.decode_attention(*(_t(a).to(tdt) for a in (q, k, v)), _t(lens))
+    b, s, h, _, hd = shape
+    assert got.dtype == tdt and tuple(got.shape) == (b, 1, h, hd)
+    got = _np(got.float())
+    jq, jk, jv = (jnp.asarray(a, jdt) for a in (q, k, v))
+    want = np.asarray(jref.decode_attention_ref(jq, jk, jv, jnp.asarray(lens)), np.float32)
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+    pal = np.asarray(jops.decode_attention(jq, jk, jv, lens, impl="interpret",
+                                           block_k=32), np.float32)
+    rows = (lens < s) | (s % 32 == 0)
+    assert rows.sum() >= 2 and rows.all() == (s % 32 == 0)
+    np.testing.assert_allclose(got[rows], pal[rows], rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("window", [1, 8, 40])
+@pytest.mark.parametrize("name,tdt,jdt,tol", ATTN_DTYPES)
+def test_decode_attention_window_matches_the_models_mask(window, name, tdt, jdt, tol):
+    """``window > 0`` is the mask of the reference's decode step
+    (``models/attention.py``): positions ``lens - window < k_pos <= lens``.
+    A row whose window lies past the cache sees no key and gets the
+    uniform softmax, in both."""
+    from repro.models import attention as jattn
+    q, k, v, lens = _decode_inputs(4, 77, 8, 2, 16, seed=window)
+    lens[3] = 77 + window + 2                     # no key in its window
+    got = tops.decode_attention(*(_t(a).to(tdt) for a in (q, k, v)), _t(lens),
+                                window=window)
+    k_pos = np.arange(77)
+    mask = (k_pos[None] <= lens[:, None]) & (lens[:, None] - k_pos[None] < window)
+    assert not mask[3].any() and mask[:2].any(axis=1).all()
+    want = jattn.gqa_attend(*(jnp.asarray(a, jdt) for a in (q, k, v)),
+                            jnp.asarray(mask[:, None, None, :]))
+    np.testing.assert_allclose(_np(got.float()), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+    if name == "float32":
+        np.testing.assert_allclose(_np(got)[3, 0], np.repeat(v[3].mean(0), 4, axis=0),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_decode_attention_entry_and_wrapper_on_cpu_tensors():
+    """``ops.decode_attention`` runs the plain version for CPU tensors and
+    returns a tensor there; the kernel wrapper refuses them and counts no
+    launch; its shape checks raise ``ValueError``."""
+    from repro_torch.kernels import decode_attention as tda
+    q, k, v, lens = (_t(a) for a in _decode_inputs(3, 40, 4, 2, 16, seed=3))
+    n0 = tda.launches
+    got = tops.decode_attention(q, k, v, lens, window=5)
+    assert isinstance(got, torch.Tensor) and got.device.type == "cpu"
+    torch.testing.assert_close(got, tref.decode_attention_ref(q, k, v, lens, window=5),
+                               rtol=0, atol=0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tda.decode_attention(q, k, v, lens)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tops.decode_attention(q, k, v, lens, impl="cuda")
+    assert tda.launches == n0
+    tda.check_shapes(q, k, v, lens, 0)
+    for args, match in [((q[:, :1].expand(3, 2, 4, 16), k, v, lens, 0), "expected"),
+                        ((q, k, v[:, :5], lens, 0), "expected"),
+                        ((q, k[:2], v[:2], lens, 0), "do not fit"),
+                        ((q, k, v, lens[:2], 0), "lens"),
+                        ((q[:, :, :3], k, v, lens, 0), "multiple"),
+                        ((torch.zeros(3, 1, 2, 256), torch.zeros(3, 4, 2, 256),
+                          torch.zeros(3, 4, 2, 256), lens, 0), "head dim"),
+                        ((q, k[:, :0], v[:, :0], lens, 0), "at least one"),
+                        ((q, k, v, lens, -1), "window")]:
+        with pytest.raises(ValueError, match=match):
+            tda.check_shapes(*args)
+
+
+def test_decode_attention_splits_only_where_blocks_leave_sms_idle():
+    from repro_torch.kernels.decode_attention import splits_for
+    assert splits_for(64, 8, 24, 1024, 132) == 1          # 512 blocks: 3 per SM
+    assert splits_for(32, 8, 24, 1024, 132) == 2          # 256 blocks
+    assert splits_for(8, 8, 24, 1024, 132) == 7           # 64 blocks, 8 tiles
+    assert splits_for(1, 1, 4, 200, 132) == 2             # capped at the 2 tiles
+    assert splits_for(2, 1, 16, 4096, 132) == 32          # 2 q-head groups, 32 tiles
+    assert splits_for(1, 8, 8, 1, 132) == 1
+
+
 def _bf16_ulps(got: torch.Tensor, want) -> int:
     """Largest distance in bf16 units in the last place (bit patterns mapped
     to a monotonic integer scale)."""

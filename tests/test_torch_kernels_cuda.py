@@ -9,9 +9,9 @@ The plain versions are held against the JAX reference on the CPU by
 ``test_torch_kernels.py``.  Tolerances as there: retrieval scores are dot
 products of unit vectors summed in another order (``rtol=atol=1e-5`` in
 f32); ``MASKED_SCORE`` lanes, probe blocks and ids must be exactly equal.
-Attention sums in another order and rounds its probabilities to the input
-type at another point (before or after the division by the row sum):
-``1e-5`` in f32, ``2e-2`` in bf16.  RMSNorm agrees to ``1e-5`` in f32 and
+Attention (and decode attention) sums in another order and rounds its
+probabilities to the input type at another point (before or after the
+division by the row sum): ``1e-5`` in f32, ``2e-2`` in bf16.  RMSNorm agrees to ``1e-5`` in f32 and
 to one bf16 unit in the last place in bf16."""
 import numpy as np
 import pytest
@@ -20,8 +20,11 @@ import torch
 import repro_torch
 from repro_torch.common import init_params
 from repro_torch.configs import get_smoke
+from repro_torch.data.tokenizer import TOKENIZER
+from repro_torch.engine.engine import InferenceEngine
 from repro_torch.index.backend import MASKED_SCORE
 from repro_torch.index.quant import quantize_tiles
+from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ivf_scan as tivf
 from repro_torch.kernels import ivf_scan_q as tivfq
@@ -253,3 +256,80 @@ def test_self_attention_auto_launches_kernel_on_cuda(cuda):
                                    cfg=cfg)
     assert tfa.launches == n0 + 1
     torch.testing.assert_close(out.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+DECODE_CASES = [  # b, s, h, hk, hd, window
+    (32, 1024, 24, 8, 128, 0),    # the full-width llama3.2-3b decode shape
+    (4, 1024, 24, 8, 128, 256),   # sliding window
+    (3, 300, 8, 8, 64, 0),        # Hk = H: no GQA
+    (3, 77, 8, 2, 64, 0),         # S no multiple of a tile
+    (2, 129, 4, 2, 16, 0),
+    (3, 300, 4, 1, 16, 40),
+    (2, 64, 16, 1, 32, 0),        # 16 q-heads per kv-head: two blocks read it
+    (2, 500, 12, 4, 48, 0),       # hd 48: padded to 64 in shared memory
+    (2, 50, 4, 2, 17, 7),         # hd 17: no 16-byte loads
+]
+
+
+def _decode_inputs(b, s, h, hk, hd, window, dtype, seed):
+    """q, k, v on the card and lens holding 0, S - 1, a value past S and,
+    with a window, a row whose window lies past the cache."""
+    g = torch.Generator().manual_seed(seed)
+    lens = torch.randint(0, s, (b,), generator=g, dtype=torch.int32)
+    lens[:3] = torch.tensor([0, s - 1, s + 5], dtype=torch.int32)[:b]
+    if window and b > 2:
+        lens[2] = s + window + 1
+    q = torch.randn(b, 1, h, hd, generator=g)
+    k = torch.randn(b, s, hk, hd, generator=g)
+    v = torch.randn(b, s, hk, hd, generator=g)
+    return (*(t.to("cuda", dtype) for t in (q, k, v)), lens.cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DECODE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_matches_plain(cuda, case, dtype):
+    *shape, window = case
+    q, k, v, lens = _decode_inputs(*case, dtype, seed=sum(case))
+    n0 = tda.launches
+    got = tda.decode_attention(q, k, v, lens, window=window)
+    torch.cuda.synchronize()
+    assert tda.launches == n0 + 1 and got.dtype == dtype and got.shape == q.shape
+    want = tref.decode_attention_ref(q, k, v, lens, window=window)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_decode_attention_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v, lens = _decode_inputs(2, 40, 4, 2, 16, 0, torch.float32, seed=1)
+    n0 = tda.launches
+    with pytest.raises(ValueError, match="lens"):
+        tda.decode_attention(q, k, v, lens.long())
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros(2, 40, 2, 256, device="cuda")
+        tda.decode_attention(torch.zeros(2, 1, 4, 256, device="cuda"), big, big, lens)
+    with pytest.raises(ValueError, match="contiguous"):
+        tda.decode_attention(q, k.transpose(1, 2), v.transpose(1, 2), lens)
+    with pytest.raises(ValueError, match="bfloat16"):
+        tda.decode_attention(q, k.bfloat16(), v, lens)
+    assert tda.launches == n0
+
+
+@pytest.mark.cuda
+def test_generate_on_cuda_launches_decode_kernel_and_matches_cpu(cuda):
+    """The smoke engine (3 layers, f32) under ``attn_impl="auto"``: on the
+    card every decode step of every layer launches the kernel, and the
+    generations equal the CPU's (the plain path the tests hold against
+    JAX)."""
+    cfg = get_smoke("llama3.2-3b").with_(vocab_size=TOKENIZER.vocab_size)
+    prompts = [f"request {i}: " + "abc " * (3 * i) for i in range(5)]
+    gpu = InferenceEngine(cfg, seed=0, max_slots=3, max_seq=128)
+    n0 = tda.launches
+    got = gpu.generate(prompts, max_new_tokens=8)
+    assert tda.launches - n0 >= cfg.num_layers * 7
+    assert (tda.launches - n0) % cfg.num_layers == 0
+    repro_torch.set_device("cpu")
+    cpu = InferenceEngine(cfg, gpu.runner.params, max_slots=3, max_seq=128)
+    assert cpu.generate(prompts, max_new_tokens=8) == got
+    assert gpu.stats == cpu.stats
