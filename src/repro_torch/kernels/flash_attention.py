@@ -1,6 +1,8 @@
 """GQA flash attention, causal and/or sliding window: the hand-written CUDA
 kernel ``csrc/flash_attention.cu`` behind ``ops.flash_attention``, which the
-model's self-attention reaches under ``attn_impl="pallas"``.
+model's self-attention reaches under ``attn_impl="pallas"`` (and under the
+configs' ``"auto"`` for activations on the card).  bf16 runs on the tensor
+cores (``wgmma``, f32 accumulators); f32 stays IEEE f32 on the SIMT pipes.
 
 :func:`flash_attention` takes CUDA tensors only; its plain version is
 ``ref.flash_attention_ref``, which ``ops`` runs for tensors on the CPU.
@@ -17,6 +19,9 @@ from repro_torch.kernels.ref import attn_scale
 launches = 0   # kernel launches since the caller last set this to 0
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel each dtype launches, by the name a profiler or cuobjdump shows
+KERNEL_NAMES = {torch.float32: "flash_attention_simt_f32",
+                torch.bfloat16: "flash_attention_wgmma_bf16"}
 MAX_HEAD_DIM = 128
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_longlong] * 6 + \

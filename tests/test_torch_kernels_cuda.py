@@ -165,6 +165,12 @@ ATTN_SHAPES = [  # b, sq, sk, h, hk, hd
     (1, 33, 33, 2, 1, 128), (2, 77, 77, 4, 2, 16), (2, 37, 53, 4, 2, 32),
     (1, 70, 20, 4, 2, 16),        # Sq > Sk + window: rows no key may see
     (1, 130, 130, 24, 8, 128),    # the llama3.2-3b head layout
+    # edges of the bf16 tensor-core kernel (64-row tiles, hd padded to 64/128)
+    (2, 100, 100, 4, 2, 20),      # hd 20: rows not 16-byte aligned, scalar loads
+    (1, 100, 256, 24, 8, 128),    # prefill-like: one sequence, Sq < Sk
+    (4, 512, 512, 24, 8, 128),    # 768 tiles: each persistent block walks several
+    (1, 130, 130, 8, 1, 100),     # H/Hk 8; hd 100 padded to 128, scalar loads
+    (2, 100, 100, 8, 2, 96),      # hd 96: the second 64-column TMA panel is cut at hd
 ]
 MASKS = [(True, 0), (True, 16), (False, 0), (False, 8)]
 
@@ -183,13 +189,46 @@ def _attn_inputs(b, sq, sk, h, hk, hd, dtype, seed):
 @pytest.mark.parametrize("causal,window", MASKS)
 def test_flash_attention_kernel_matches_plain(cuda, shape, dtype, causal, window):
     q, k, v = _attn_inputs(*shape, dtype, seed=sum(shape) + window)
+    _assert_flash_matches_plain(q, k, v, causal, window)
+
+
+def _assert_flash_matches_plain(q, k, v, causal, window):
     n0 = tfa.launches
     got = tfa.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert tfa.launches == n0 + 1 and got.dtype == dtype
+    assert tfa.launches == n0 + 1 and got.dtype == q.dtype
     want = tref.flash_attention_ref(q, k, v, causal=causal, window=window)
-    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    tol = 1e-5 if q.dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _misaligned(shape, dtype, seed):
+    """A contiguous CUDA tensor whose data starts one element past an
+    allocation: in bf16 its rows are not 16-byte aligned."""
+    g = torch.Generator().manual_seed(seed)
+    buf = torch.randn(int(np.prod(shape)) + 1, generator=g).to("cuda", dtype)
+    return buf[1:].view(shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [128, 64])
+@pytest.mark.parametrize("offset", ["q", "v", "qkv"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 8)])
+def test_flash_attention_misaligned_pointers_match_plain(cuda, hd, offset, dtype,
+                                                         causal, window):
+    # hd a multiple of 8 would take the 16-byte copies; a pointer that starts
+    # mid-allocation must send the bf16 kernel to its scalar loads instead
+    b, s, h, hk = 2, 96, 4, 2
+    q, k, v = _attn_inputs(b, s, s, h, hk, hd, dtype, seed=hd + window)
+    if "q" in offset:
+        q = _misaligned(q.shape, dtype, seed=1)
+    if "k" in offset:
+        k = _misaligned(k.shape, dtype, seed=2)
+    if "v" in offset:
+        v = _misaligned(v.shape, dtype, seed=3)
+    assert any(t.data_ptr() % 16 for t in (q, k, v))
+    _assert_flash_matches_plain(q, k, v, causal, window)
 
 
 def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> int:
