@@ -5,7 +5,9 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
 
   1. device   — require CUDA, print the card's name and power limit, build
-                the kernels from ``src/repro_torch/kernels/csrc``;
+                the kernels from ``src/repro_torch/kernels/csrc`` and print
+                each kernel instance's registers, shared memory and spills
+                (``nvcc -Xptxas -v``);
   2. retrieval at a realistic size — a synthetic Gaussian mixture of
                 1,000,000 x 384 fp32 rows (384 = the width of the repo's
                 E5-small embedder; 1000 centres, noise 0.04 per coordinate)
@@ -36,11 +38,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 k/v [32,512,8,128] bf16 causal; x [32*512, 3072]) and at
                 ragged edges (for bf16 attention, the tensor-core kernel's:
                 hd 20, 24, 64 and 100, Sq and Sk no multiple of 64, one
-                prefill, H/Hk 8, rows no key may see, misaligned rows); the
-                bf16 kernel's SASS must hold tensor-core instructions;
-                timed by profiler device time beside the bound and SDPA /
-                F.rms_norm, kernel and library call in turn over ROUNDS
-                rounds, with the ratio of each round;
+                prefill, H/Hk 8, rows no key may see, misaligned rows; for
+                rmsnorm, one row, rows no multiple of the persistent blocks'
+                share, d 8192 in registers, d 16384, odd and misaligned rows
+                in the fallback); the bf16 kernel's SASS must hold
+                tensor-core instructions; timed by profiler device time
+                beside the bound (GB/s and its share) and SDPA / F.rms_norm,
+                kernel and library call in turn over ROUNDS rounds, with the
+                ratio of each round;
   8. the LLM oracle at full width — llama3.2-3b (28 layers, d 3072, 24/8
                 heads, ff 8192, bf16, random weights from ``--seed``; the one
                 cut is the vocabulary, 128256 -> the byte tokenizer's 384)
@@ -60,9 +65,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 must read more than 0 ms).
   9. decode kernel — ``decode_attention`` against its plain version in f32
                 and bf16: the generate path's shape (q [32,1,24,128], k/v
-                [32,1024,8,128]), a 256 window, Hk = H, hd 64 and 16, S 77,
-                129 and 300, lens 0, S - 1 and past S; timed beside the
-                bound and SDPA (bool mask, GQA), in turn over ROUNDS rounds;
+                [32,1024,8,128]), a 256 window, S 4096 (many chunks a row),
+                8 and 16 q-heads a kv-head, Hk = H, hd 128, 100, 64, 17 and
+                16, S 77, 129 and 300, misaligned k/v, lens 0, S - 1 and
+                past S; two calls give identical bits and every merge ticket
+                ends at 0; timed beside the bound (GB/s and its share) and
+                SDPA (bool mask, GQA), in turn over ROUNDS rounds;
  10. small generate — the smoke-size model (f32) generating on the card
                 against the CPU: identical texts, teacher-forced log-probs
                 within 1e-5;
@@ -76,7 +84,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 prefill, and every request must end done, none failed or
                 retried.  Time to first token, the decode step at 32 active
                 slots, generated tokens/s, peak memory, and one decode step
-                by kernel (profiler);
+                by kernel (profiler; every device function named
+                ``decode_attention_*`` counts, and it must read more than 0
+                ms);
  12. generate agreement — the kernel path against the plain path
                 (``attn_impl="full"``) teacher-forced over 32 sequences x 64
                 generated positions: bf16 through 28 layers to
@@ -86,8 +96,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
  13. paged decode — ``engine/paged.py`` against contiguous decode at full
                 width (8 rows, pages of 16), its kernel launches counted.
 
-The second-to-last line of output is ``{"kernels": [...]}``; the last is
-``{"ok": true, "device": {...}}``.
+The second-to-last line of output is ``{"kernels": [...]}``, whose
+``clock`` says how ``ms`` and ``library_ms`` were timed ("profiler": device
+time; "events": CUDA events, host launch gaps included) and ``plain_clock``
+the same of ``plain_ms``; the last is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -98,6 +110,7 @@ import functools
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -272,11 +285,12 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int, tries: int = 3) -> float:
+def device_ms(fn, reps: int, tries: int = 3) -> float | None:
     """Device time of one call of ``fn`` from the profiler's kernel and copy
-    records of ``reps`` calls.  CUDA events around a call also count the
-    host's launch time, which on a busy host exceeds a decode kernel's own
-    tenth of a millisecond; the profiler counts device time alone.
+    records of ``reps`` calls, or None when the profiler kept no record in
+    ``tries`` windows.  CUDA events around a call also count the host's
+    launch time, which on a busy host exceeds a decode kernel's own tenth of
+    a millisecond; the profiler counts device time alone.
 
     Deep into this script's run the profiler loses some of a window's
     records: 16 of cuDNN SDPA's 20 (a kernel and a memset per call), or 5 of
@@ -286,7 +300,8 @@ def device_ms(fn, reps: int, tries: int = 3) -> float:
     record name counts with its mean duration times its launches per call,
     ceil(records / reps), which is exact while fewer than ``reps`` records
     of a name are lost.  A window that lost records is reported; one with
-    none is profiled again, up to ``tries`` times."""
+    none is profiled again, up to ``tries`` times (three empty windows in a
+    row happened once, timing the f32 decode kernel)."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -300,7 +315,9 @@ def device_ms(fn, reps: int, tries: int = 3) -> float:
         if dev:
             break
         log(f"device_ms: the profiler kept no record of {reps} calls, profiled again")
-    assert dev, f"the profiler recorded no device time in {tries} windows"
+    else:
+        log(f"device_ms: the profiler kept no record of {reps} calls in {tries} windows")
+        return None
     lost = [f"{e.key[:40]} {e.count}" for e in dev if e.count % reps]
     if lost:
         log(f"device_ms: the profiler kept {', '.join(lost)} records of {reps} calls")
@@ -308,15 +325,62 @@ def device_ms(fn, reps: int, tries: int = 3) -> float:
     return us / 1e3
 
 
+def plain_ms(fn, reps: int) -> tuple[float, str]:
+    """(ms, clock) of a plain version: ``device_ms`` ("profiler"), or the
+    median CUDA-event time of a call ("events", host launch gaps included)
+    where the profiler kept no record.  The clock goes into the kernels line
+    as ``plain_clock``; no kernel / library ratio reads this time."""
+    ms = device_ms(fn, reps)
+    return (ms, "profiler") if ms is not None else (cuda_ms(fn, reps), "events")
+
+
+def profiled(fn, tries: int = 3) -> tuple[float, list]:
+    """(wall ms, the device records) of one call of ``fn`` under the
+    profiler; a window that kept no device record is profiled again, up to
+    ``tries`` times (the fault ``device_ms`` describes), and after that the
+    records are empty."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        recs = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if recs:
+            return wall, recs
+        log("profiled: the profiler kept no device record, profiled again")
+    return wall, []
+
+
 def interleaved_ms(kernel, library, reps: int) -> tuple[float, float, list[float]]:
     """``device_ms`` of ``kernel`` and of ``library`` in turns over ROUNDS
     rounds, so that a drift of the card's clocks reaches both: -> (median
-    kernel ms, median library ms, the ratio of each round)."""
+    kernel ms, median library ms, the ratio of each round).  A round in
+    which the profiler kept no record of either side is left out of the
+    medians and ratios and reported; with no round left this fails, so both
+    times are always the profiler's device time."""
     ks, ls = [], []
-    for _ in range(ROUNDS):
-        ks.append(device_ms(kernel, reps))
-        ls.append(device_ms(library, reps))
+    for r in range(ROUNDS):
+        a, b = device_ms(kernel, reps), device_ms(library, reps)
+        if a is None or b is None:
+            log(f"interleaved_ms: round {r + 1} of {ROUNDS} left out, the profiler kept no "
+                f"record of the {'kernel' if a is None else 'library call'}")
+            continue
+        ks.append(a)
+        ls.append(b)
+    assert ks, f"the profiler kept no record in any of {ROUNDS} rounds"
     return statistics.median(ks), statistics.median(ls), [a / b for a, b in zip(ks, ls)]
+
+
+def misaligned(shape, dt, g) -> torch.Tensor:
+    """A contiguous CUDA tensor of ``shape`` whose data starts one element
+    past an allocation: rows not 16-byte aligned, so a kernel takes scalar
+    loads; drawn from the generator ``g``."""
+    buf = torch.randn(int(np.prod(shape)) + 1, device="cuda", generator=g).to(dt)
+    return buf[1:].view(shape)
 
 
 def plane_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -394,7 +458,7 @@ def kernel_phase(args, idx_exact, idx_ivf, idx_q, queries, bw, fp32) -> dict:
     nbytes = 4 * DIM * (nq + nc) + 4 * nq * nc
     flops = 2 * nq * nc * DIM
     out["similarity"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                             nbytes=nbytes, flops=flops,
+                             nbytes=nbytes, flops=flops, clock="events", plain_clock="events",
                              shape=f"q[{nq},{DIM}] x c[{nc},{DIM}]")
 
     # the probes the IVF join computes (both IVF indexes share the quantizer)
@@ -474,7 +538,7 @@ def kernel_phase(args, idx_exact, idx_ivf, idx_q, queries, bw, fp32) -> dict:
             log(f"{name}: library einsum skipped, it may need "
                 f"{need / 2**30:.1f} GiB of {free / 2**30:.1f} GiB free")
         out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                         nbytes=nbytes, flops=flops,
+                         nbytes=nbytes, flops=flops, clock="events", plain_clock="events",
                          shape=f"q[{qp.shape[0]},{DIM}] probes[{nbp},{slots}] "
                                f"tiles[{kc},{L},{DIM}] distinct_probed={len(uniq)}")
         torch.cuda.empty_cache()
@@ -644,6 +708,35 @@ def tensor_core_ops(symbol: str) -> dict[str, int]:
     return counts
 
 
+def ptxas_report(name: str) -> list[tuple[str, str, str]]:
+    """(kernel instance, registers and shared memory, spills) of each entry
+    function in the ``nvcc -Xptxas -v`` log of the ``name`` library, names
+    demangled by the toolkit's ``cu++filt`` where it has one; empty when
+    the library has no log beside it."""
+    path = _build.library_path(name).with_suffix(".log")
+    if not path.exists():
+        return []
+    fns, used, spills, cur = [], {}, {}, None
+    for line in path.read_text().splitlines():
+        if "Compiling entry function" in line:
+            cur = line.split("'")[1]
+            fns.append(cur)
+        elif "Function properties for" in line:
+            cur = line.rsplit(" ", 1)[1].strip()
+        elif "spill stores" in line and cur is not None:
+            spills[cur] = line.strip()
+        elif "Used" in line and cur is not None:
+            used[cur] = line.split(":", 1)[1].strip()
+    filt = os.path.join(os.path.dirname(_build.nvcc()), "cu++filt")
+    names = fns
+    if fns and os.path.exists(filt):
+        names = subprocess.run([filt], input="\n".join(fns), capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+    short = [re.sub(r"\((unsigned )?int\)|<unnamed>::|\(anonymous namespace\)::", "", n)
+             .split("(")[0] for n in names]
+    return [(n, used.get(f, "?"), spills.get(f, "?")) for n, f in zip(short, fns)]
+
+
 def bound(nbytes: float, flops: float, bw: float, peak: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / bw, flops / peak
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -663,12 +756,6 @@ def oracle_kernel_phase(args, bw, fp32, bf16) -> dict:
         return (torch.randn(b, sq, h, hd, device=dev, generator=g).to(dt),
                 torch.randn(b, sk, hk, hd, device=dev, generator=g).to(dt),
                 torch.randn(b, sk, hk, hd, device=dev, generator=g).to(dt))
-
-    def misaligned(*shape, dt):
-        """A contiguous tensor whose data starts 2 bytes past an allocation:
-        rows not 16-byte aligned, so the bf16 kernel takes scalar loads."""
-        buf = torch.randn(int(np.prod(shape)) + 1, device=dev, generator=g).to(dt)
-        return buf[1:].view(shape)
 
     # bf16 runs the tensor-core kernel, f32 the SIMT one; the bf16 cases reach
     # the tensor-core kernel's edges: hd 20 and 100 (rows not 16-byte aligned:
@@ -695,7 +782,7 @@ def oracle_kernel_phase(args, bw, fp32, bf16) -> dict:
             ("misaligned", b16, True, 0)]:
         if shape == "misaligned":
             shape = (2, 96, 96, 4, 2, HD)
-            q, k, v = (misaligned(2, 96, h, HD, dt=dt) for h in (4, 2, 2))
+            q, k, v = (misaligned((2, 96, h, HD), dt, g) for h in (4, 2, 2))
         else:
             q, k, v = qkv(*shape, dt)
         e = close_err(kfa.flash_attention(q, k, v, causal=causal, window=window),
@@ -719,29 +806,36 @@ def oracle_kernel_phase(args, bw, fp32, bf16) -> dict:
         ms, lib, ratios = interleaved_ms(
             lambda: kfa.flash_attention(q, k, v, causal=True),
             lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), 10)
-        plain = device_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True), 3)
+        plain, pclock = plain_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True), 3)
         ev = cuda_ms(lambda: kfa.flash_attention(q, k, v, causal=True), 10)
         nbytes = q.element_size() * (q.numel() + k.numel() + v.numel() + q.numel())
         bms, by = bound(nbytes, flops, bw, bf16 if dt == b16 else fp32)
         log(f"flash_attention q[{B},{S},{H},{HD}] k/v[{B},{S},{HK},{HD}] {dt} causal, "
             f"device time (profiler): kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
-            f"TFLOP/s), plain {plain:.4f} ms, SDPA {lib:.4f} ms ({flops / lib / 1e9:.1f} "
-            f"TFLOP/s); bound {bms:.4f} ms ({by}); median kernel / SDPA "
+            f"TFLOP/s), plain {plain:.4f} ms ({pclock}), SDPA {lib:.4f} ms "
+            f"({flops / lib / 1e9:.1f} TFLOP/s); bound {bms:.4f} ms ({by}); median kernel / SDPA "
             f"{statistics.median(ratios):.3f}; kernel by CUDA events {ev:.4f} ms")
-        log(f"  kernel / SDPA in each of {ROUNDS} rounds: "
+        log(f"  kernel / SDPA in each of {len(ratios)} rounds: "
             + ", ".join(f"{r:.3f}" for r in ratios))
         if dt == b16:
             out["flash_attention"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
-                bound_by=by, nbytes=nbytes, flops=flops,
+                bound_by=by, nbytes=nbytes, flops=flops, clock="profiler", plain_clock=pclock,
                 shape=f"q[{B},{S},{H},{HD}] k/v[{B},{S},{HK},{HD}] bf16 causal")
         del q, k, v, qt, kt, vt
 
+    # the register path (rows of up to 8192 bf16 / 4096 f32 values, here one
+    # row and rows no multiple of the persistent blocks' share) and the
+    # two-pass fallback (wider, odd or misaligned rows)
     err = 0.0
-    for shape in [(B * S, D), (1000, D - 1), (37, 17), (5, 7, 8)]:
+    for shape in [(B * S, D), (1, D), (3001, D), (2500, 8192), (300, 16384), (1000, D - 1),
+                  (37, 17), (5, 7, 8), "misaligned"]:
         for dt in (b16, f32):
-            x = torch.randn(shape, device=dev, generator=g).to(dt)
-            sc = torch.randn(shape[-1], device=dev, generator=g)
+            if shape == "misaligned":
+                x = misaligned((40, D), dt, g)
+            else:
+                x = torch.randn(shape, device=dev, generator=g).to(dt)
+            sc = torch.randn(x.shape[-1], device=dev, generator=g)
             got, want = krn.rmsnorm(x, sc, eps=1e-5), ref.rmsnorm_ref(x, sc, eps=1e-5)
             if dt == b16:
                 u = bf16_ulps(got, want)
@@ -753,14 +847,17 @@ def oracle_kernel_phase(args, bw, fp32, bf16) -> dict:
     ms, lib, ratios = interleaved_ms(
         lambda: krn.rmsnorm(x, sc, eps=1e-5),
         lambda: torch.nn.functional.rms_norm(x, (D,), sc16, eps=1e-5), 20)
-    plain = device_ms(lambda: ref.rmsnorm_ref(x, sc, eps=1e-5), 10)
+    plain, pclock = plain_ms(lambda: ref.rmsnorm_ref(x, sc, eps=1e-5), 10)
     nbytes = 2 * x.numel() * 2 + D * 4
     bms, by = bound(nbytes, 4 * x.numel(), bw, fp32)
     out["rmsnorm"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
                           bound_ms=bms, bound_by=by, nbytes=nbytes, flops=4 * x.numel(),
+                          clock="profiler", plain_clock=pclock,
                           shape=f"x[{B * S},{D}] bf16, scale[{D}] f32")
     log(f"rmsnorm x[{B * S},{D}] bf16, device time (profiler): kernel {ms:.4f} ms "
-        f"({nbytes / ms / 1e6:.0f} GB/s), plain {plain:.4f} ms, F.rms_norm {lib:.4f} ms; "
+        f"({nbytes / ms / 1e6:.0f} GB/s, {bms / ms:.3f} of the {by} bound {bms:.4f} ms at "
+        f"{bw / 1e9:.0f} GB/s), plain {plain:.4f} ms ({pclock}), F.rms_norm {lib:.4f} ms "
+        f"({nbytes / lib / 1e6:.0f} GB/s); "
         f"median kernel / F.rms_norm {statistics.median(ratios):.3f} (each round: "
         + ", ".join(f"{r:.3f}" for r in ratios) + f"); max abs err over all cases "
         f"{err:.3g} (f32 within 1e-5, bf16 within one ulp)")
@@ -969,14 +1066,7 @@ def oracle_phase(args) -> dict:
         f"{wall * 1e3 / 2:.1f} ms per 32-prompt batch, {ntok / wall:.0f} prompt tokens/s")
     seqs = [TOKENIZER.encode(p)[:512] for p in prompts[:32]]
     toks = TOKENIZER.pad_batch(seqs, max(16, max(len(q) for q in seqs)))
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        score(toks)
-        torch.cuda.synchronize()
-        fwd_ms = (time.perf_counter() - t0) * 1e3
-    recs = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    fwd_ms, recs = profiled(lambda: score(toks))
     dev = sorted(((e.self_device_time_total / 1e3, e.key) for e in recs), reverse=True)
     busy = sum(ms for ms, _ in dev)
     assert busy > 0, "the profiler recorded no device time for the forward"
@@ -1036,50 +1126,81 @@ NEAR_TIE = 1e-4   # a top-1/top-2 log-prob margin under which greedy f32 paths m
 
 def decode_kernel_phase(args, bw, bf16) -> dict:
     """decode_attention against its plain version on the card, in f32 and
-    bf16, at the generate path's shape and at ragged edges (window, no GQA,
-    small head dims, S no multiple of a tile, lens 0, S - 1 and past S),
-    timed beside the bound and SDPA."""
+    bf16, at the generate path's shape and at ragged edges (window, many
+    chunks a row, 1 to 16 q-heads a kv-head, small and odd head dims, S no
+    multiple of a tile, misaligned k/v, lens 0, S - 1 and past S); two calls
+    give identical bits and the merge's tickets end at 0; timed beside the
+    bound and SDPA."""
     dev = torch.device("cuda")
     g = torch.Generator(device="cuda").manual_seed(args.seed + 5)
     cfg = get_config(ORACLE)
     B, S, H, HK, HD = GEN_SLOTS, GEN_MAX_SEQ, cfg.num_heads, cfg.num_kv_heads, cfg.hd
     f32, b16 = torch.float32, torch.bfloat16
 
-    def inputs(b, s, h, hk, hd, dt, window=0, edges=True):
-        q = torch.randn(b, 1, h, hd, device=dev, generator=g).to(dt)
-        k = torch.randn(b, s, hk, hd, device=dev, generator=g).to(dt)
-        v = torch.randn(b, s, hk, hd, device=dev, generator=g).to(dt)
-        lens = torch.randint(0, s, (b,), device=dev, generator=g, dtype=torch.int32)
+    def inputs(b, s, h, hk, hd, dt, window=0, edges=True, gen=g):
+        q = torch.randn(b, 1, h, hd, device=dev, generator=gen).to(dt)
+        k = torch.randn(b, s, hk, hd, device=dev, generator=gen).to(dt)
+        v = torch.randn(b, s, hk, hd, device=dev, generator=gen).to(dt)
+        lens = torch.randint(0, s, (b,), device=dev, generator=gen, dtype=torch.int32)
         if edges:   # 0, S - 1, past S and, with a window, a row that sees no key
-            fixed = [0, s - 1, s + 5] + ([s + window + 1] if window else [])
+            fixed = ([0, s - 1, s + 5] + ([s + window + 1] if window else []))[:b]
             lens[:len(fixed)] = torch.tensor(fixed, dtype=torch.int32, device=dev)
         return q, k, v, lens
 
     err = 0.0
     for shape, window in [((B, S, H, HK, HD), 0),       # the generate path's shape
                           ((8, S, H, HK, HD), 256),     # sliding window
+                          ((2, 4096, 8, 2, HD), 0),     # many chunks a row
+                          ((3, 700, 8, 1, HD), 0),      # 8 q-heads a kv-head
+                          ((3, 700, 16, 1, HD), 0),     # 16: two blocks read it
+                          ((3, 700, H, HK, 100), 0),    # hd 100: scalar loads
                           ((6, 300, 8, 8, 64), 0),      # Hk = H, hd 64
                           ((6, 77, 8, 2, 64), 0),
                           ((6, 129, 4, 2, 16), 0),      # hd 16
-                          ((6, 300, 4, 1, 16), 40)]:
+                          ((6, 300, 4, 1, 16), 40),
+                          ((4, 500, 4, 2, 17), 7),      # hd 17
+                          ("misaligned", 0)]:
         for dt in (f32, b16):
-            q, k, v, lens = inputs(*shape, dt, window)
+            if shape == "misaligned":   # k/v rows of 16-byte multiples, not aligned
+                q, k, v, lens = inputs(4, 600, H, HK, HD, dt, window)
+                k, v = (misaligned(k.shape, dt, g), misaligned(v.shape, dt, g))
+            else:
+                q, k, v, lens = inputs(*shape, dt, window)
             e = close_err(kda.decode_attention(q, k, v, lens, window=window),
                           ref.decode_attention_ref(q, k, v, lens, window=window),
                           ATTN_TOL[dt])
-            log(f"decode_attention [b,s,h,hk,hd]={list(shape)} {dt} window={window}: "
+            bshkd = [k.shape[0], k.shape[1], q.shape[2], k.shape[2], k.shape[3]]
+            log(f"decode_attention [b,s,h,hk,hd]={bshkd} {dt} window={window}"
+                f"{' misaligned' if k.data_ptr() % 16 else ''}: "
                 f"max abs err {e:.3g} (tol {ATTN_TOL[dt]} + rel)")
             err = max(err, e)
+    # chunks merge in chunk order: two calls give identical bits; the last
+    # block of a row resets its ticket, so a call after one with other lens
+    # is right and the tickets end at 0
+    q, k, v, lens = inputs(4, S, H, HK, HD, b16, edges=False)   # several chunks a row
+    assert kda.chunk_for(4, HK, H, S, kda._sms(q.device)) < S
+    first, again = (kda.decode_attention(q, k, v, lens) for _ in range(2))
+    assert torch.equal(first.view(torch.int16), again.view(torch.int16)), "not deterministic"
+    for ls in (torch.flip(lens, (0,)), lens):
+        close_err(kda.decode_attention(q, k, v, ls), ref.decode_attention_ref(q, k, v, ls),
+                  ATTN_TOL[b16])
+    torch.cuda.synchronize()
+    assert all(int(t.abs().sum()) == 0 for t in kda._TICKETS.values()), "a ticket was left set"
+    log("decode_attention: two calls on the same inputs give identical bits; calls with "
+        "other lens in between agree with the plain version; every ticket is back at 0")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out = {}
+    # the timed inputs from a generator of their own, drawn as
+    # tools/kernel_ab.py draws them: both time the same lens
+    gt = torch.Generator(device="cuda").manual_seed(args.seed)
     for dt in (b16, f32):
-        q, k, v, lens = inputs(B, S, H, HK, HD, dt, edges=False)
+        q, k, v, lens = inputs(B, S, H, HK, HD, dt, edges=False, gen=gt)
         mask = (torch.arange(S, device=dev)[None, :] <= lens[:, None])[:, None, None, :]
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         ms, lib, ratios = interleaved_ms(
             lambda: kda.decode_attention(q, k, v, lens),
             lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True), 20)
-        plain = device_ms(lambda: ref.decode_attention_ref(q, k, v, lens), 5)
+        plain, pclock = plain_ms(lambda: ref.decode_attention_ref(q, k, v, lens), 5)
         lib_err = float((sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True).transpose(1, 2)
                          .float() - ref.decode_attention_ref(q, k, v, lens).float())
                         .abs().max())
@@ -1090,15 +1211,15 @@ def decode_kernel_phase(args, bw, bf16) -> dict:
         bms, by = bound(nbytes, flops, bw, bf16)
         log(f"decode_attention q[{B},1,{H},{HD}] k/v[{B},{S},{HK},{HD}] {dt}, {rows} "
             f"attended rows, device time (profiler): kernel {ms:.4f} ms "
-            f"({nbytes / ms / 1e6:.0f} GB/s), plain "
-            f"{plain:.4f} ms, SDPA (bool mask, GQA) {lib:.4f} ms (its max abs err "
-            f"{lib_err:.3g}), bound {bms:.4f} ms ({by}); median kernel / SDPA "
+            f"({nbytes / ms / 1e6:.0f} GB/s, {bms / ms:.3f} of the {by} bound {bms:.4f} ms "
+            f"at {bw / 1e9:.0f} GB/s), plain {plain:.4f} ms ({pclock}), SDPA (bool mask, GQA) "
+            f"{lib:.4f} ms (its max abs err {lib_err:.3g}); median kernel / SDPA "
             f"{statistics.median(ratios):.3f} (each round: "
             + ", ".join(f"{r:.3f}" for r in ratios) + ")")
         if dt == b16:
             out["decode_attention"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
-                bound_by=by, nbytes=nbytes, flops=flops,
+                bound_by=by, nbytes=nbytes, flops=flops, clock="profiler", plain_clock=pclock,
                 shape=f"q[{B},1,{H},{HD}] k/v[{B},{S},{HK},{HD}] bf16, {rows} attended rows")
     r = out["decode_attention"]
     log(f"kernel decode_attention: {r['shape']} err={r['max_abs_err']:.3g} "
@@ -1295,28 +1416,26 @@ def generate_phase(args) -> dict:
     toks = np.random.default_rng(args.seed).integers(0, 256, GEN_SLOTS).astype(np.int32)
     lens = np.full(GEN_SLOTS, 520, np.int32)
     decode(toks, lens)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        decode(toks, lens)
-        wall = (time.perf_counter() - t0) * 1e3
-    dev = sorted(((e.self_device_time_total / 1e3, e.key, e.count) for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
+    wall, recs = profiled(lambda: decode(toks, lens))
+    dev = sorted(((e.self_device_time_total / 1e3, e.key, e.count) for e in recs),
+                 reverse=True)
     busy = sum(ms for ms, _, _ in dev)
-    if busy > 0:
-        attn = sum(ms for ms, k, _ in dev if "decode_attention_kernel" in k)
-        gemm = sum(ms for ms, k, _ in dev if any(w in k.lower() for w in
-                                                  ("nvjet", "gemm", "xmma", "cutlass")))
-        log(f"decode step [{GEN_SLOTS} slots, lens 520] under the profiler: wall {wall:.2f} ms,"
-            f" device busy {busy:.3f} ms, idle share {1 - busy / wall:.4f}, "
-            f"{sum(c for _, _, c in dev)} device ops; GEMMs {gemm:.3f} ms (share of busy "
-            f"{gemm / busy:.4f}), decode_attention {attn:.3f} ms ({attn / busy:.4f}), rest "
-            f"{busy - gemm - attn:.3f} ms ({(busy - gemm - attn) / busy:.4f})")
-        log("decode step top kernels: " + "; ".join(
-            f"{k[:60]} x{c} {ms:.3f} ms" for ms, k, c in dev[:8]))
-    else:
-        log("decode step under the profiler: no device time recorded (not measured)")
+    assert busy > 0, "the profiler recorded no device time for the decode step"
+    # every device function of the kernel, by its name's prefix: a renamed
+    # kernel, or one that splits off a merge, must not read 0 ms
+    attn = sum(ms for ms, k, _ in dev if kda.KERNEL_PREFIX in k)
+    assert attn > 0, f"the decode step's profile names no {kda.KERNEL_PREFIX}*"
+    gemm = sum(ms for ms, k, _ in dev if any(w in k.lower() for w in
+                                              ("nvjet", "gemm", "xmma", "cutlass")))
+    log(f"decode step [{GEN_SLOTS} slots, lens 520] under the profiler: wall {wall:.2f} ms,"
+        f" device busy {busy:.3f} ms, idle share {1 - busy / wall:.4f}, "
+        f"{sum(c for _, _, c in dev)} device ops; GEMMs {gemm:.3f} ms (share of busy "
+        f"{gemm / busy:.4f}), decode_attention {attn:.3f} ms ({attn / busy:.4f}) in "
+        f"{sum(c for _, k, c in dev if kda.KERNEL_PREFIX in k)} records of "
+        f"{cfg.num_layers} launches, rest {busy - gemm - attn:.3f} ms "
+        f"({(busy - gemm - attn) / busy:.4f})")
+    log("decode step top kernels: " + "; ".join(
+        f"{k[:60]} x{c} {ms:.3f} ms" for ms, k, c in dev[:8]))
     prompts = [r.tokens for r in sorted(runs[0][1], key=lambda r: r.rid)[:32]]
     return dict(engine=engine, prompts=prompts, launches=launches)
 
@@ -1476,13 +1595,10 @@ def main() -> None:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; peaks for {sku}: "
         f"{bw / 1e12} TB/s, {fp32 / 1e12} TFLOP/s fp32, {bf16 / 1e12} TFLOP/s bf16")
     build_s = _build.build()
-    log(f"kernels built in {build_s:.2f} s")
+    log(f"kernels built in {build_s:.2f} s; ptxas -v, per kernel instance:")
     for name in _build.SOURCES:
-        text = _build.library_path(name).with_suffix(".log")
-        if text.exists():
-            for line in text.read_text().splitlines():
-                if "Used" in line:
-                    log(f"  {name}: {line.strip()}")
+        for fn, used, spills in ptxas_report(name):
+            log(f"  {name}: {fn}: {used}; {spills}")
 
     lap("1 device and build")
 
@@ -1595,7 +1711,8 @@ def main() -> None:
          "replaces": _SOURCES[name][1], "launches": launches[name],
          "max_abs_err": kres[name]["max_abs_err"], "ms": kres[name]["ms"],
          "plain_ms": kres[name]["plain_ms"], "bound_ms": kres[name]["bound_ms"],
-         "bound_by": kres[name]["bound_by"], "library_ms": kres[name]["library_ms"]}
+         "bound_by": kres[name]["bound_by"], "library_ms": kres[name]["library_ms"],
+         "clock": kres[name]["clock"], "plain_clock": kres[name]["plain_clock"]}
         for name, _ in _KERNELS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_functions: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 class KernelError(Exception):
@@ -104,10 +105,14 @@ def load(name: str) -> ctypes.CDLL:
 def function(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
     """``symbol`` of the library for ``csrc/<name>.cu``, typed: every
     pointer and the stream are ``c_void_p`` (a plain int would be cut to 32
-    bits), and every entry point returns its CUDA error code."""
-    f = getattr(load(name), symbol)
-    f.argtypes = argtypes
-    f.restype = ctypes.c_int
+    bits), and every entry point returns its CUDA error code.  Typed once;
+    later calls return the same object."""
+    f = _functions.get((name, symbol))
+    if f is None:
+        f = getattr(load(name), symbol)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+        _functions[(name, symbol)] = f
     return f
 
 

@@ -1,7 +1,9 @@
 """Fused RMSNorm: the hand-written CUDA kernel ``csrc/rmsnorm.cu`` behind
 ``ops.rmsnorm``.  As in the reference, the models call the plain
 ``models.layers.rmsnorm``, which does the same math; the kernel is reached
-through ``ops.rmsnorm``.
+through ``ops.rmsnorm``.  Rows of up to 8192 bf16 / 4096 f32 values, 16-byte
+aligned, are held in registers by persistent blocks and read once; wider
+or unaligned rows take a two-pass fallback.
 
 :func:`rmsnorm` takes CUDA tensors only; its plain version is
 ``ref.rmsnorm_ref``, which ``ops`` runs for tensors on the CPU.

@@ -492,13 +492,21 @@ def test_decode_attention_entry_and_wrapper_on_cpu_tensors():
 
 
 def test_decode_attention_splits_only_where_blocks_leave_sms_idle():
-    from repro_torch.kernels.decode_attention import splits_for
-    assert splits_for(64, 8, 24, 1024, 132) == 1          # 512 blocks: 3 per SM
-    assert splits_for(32, 8, 24, 1024, 132) == 2          # 256 blocks
-    assert splits_for(8, 8, 24, 1024, 132) == 7           # 64 blocks, 8 tiles
-    assert splits_for(1, 1, 4, 200, 132) == 2             # capped at the 2 tiles
-    assert splits_for(2, 1, 16, 4096, 132) == 32          # 2 q-head groups, 32 tiles
-    assert splits_for(1, 8, 8, 1, 132) == 1
+    """The kernel's grid is (kv-head x q-head group, key chunk, batch row);
+    the chunk holds 1024 keys and halves, down to 256, only while the grid
+    would leave an SM without a block.  It reads shapes alone: the host
+    never sees lens."""
+    from repro_torch.kernels.decode_attention import CHUNK_KEYS, MIN_CHUNK, chunk_for
+    assert (CHUNK_KEYS, MIN_CHUNK) == (1024, 256)
+    assert chunk_for(32, 8, 24, 1024, 132) == 1024        # 256 blocks: one chunk a row
+    assert chunk_for(32, 8, 24, 4096, 132) == 1024        # 4 chunks a row
+    assert chunk_for(8, 8, 24, 1024, 132) == 256          # 64 and 128 < 132 blocks
+    assert chunk_for(8, 8, 24, 128, 132) == 256           # paged decode: one chunk a row
+    assert chunk_for(1, 1, 4, 200, 132) == 256
+    assert chunk_for(2, 1, 16, 4096, 132) == 256          # 2 q-head groups: 16 chunks each
+    assert chunk_for(1, 8, 8, 1, 132) == 256              # one chunk, however small
+    assert chunk_for(32, 8, 24, 1024, 600) == 256         # more SMs, smaller chunks
+    assert chunk_for(3, 8, 24, 700, 132) == 256           # the floor: 3 x 24 < 132 blocks
 
 
 def _bf16_ulps(got: torch.Tensor, want) -> int:

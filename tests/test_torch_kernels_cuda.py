@@ -259,6 +259,48 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
         assert bf16_ulps(got, want) <= 1
 
 
+def _assert_rmsnorm_matches_plain(x, scale):
+    n0 = trn.launches
+    got = trn.rmsnorm(x, scale, eps=1e-5)
+    torch.cuda.synchronize()
+    assert trn.launches == n0 + 1 and got.dtype == x.dtype and got.shape == x.shape
+    want = tref.rmsnorm_ref(x, scale, eps=1e-5)
+    if x.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert bf16_ulps(got, want) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (1, 3072),        # one row
+    (3001, 3072),     # the oracle's width; rows no multiple of the blocks' share
+    (2500, 8192),     # the widest row the registers hold in bf16 (4096 in f32)
+    (300, 4096),
+    (300, 16384),     # wider: the two-pass fallback
+    (50, 17),         # no 16-byte chunks: the scalar fallback
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_paths_match_plain(cuda, shape, dtype):
+    g = torch.Generator().manual_seed(sum(shape))
+    x = torch.randn(shape, generator=g).to("cuda", dtype)
+    scale = torch.randn(shape[-1], generator=g).to("cuda")
+    _assert_rmsnorm_matches_plain(x, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_misaligned_rows_match_plain(cuda, dtype):
+    x = _misaligned((40, 3072), dtype, seed=4)
+    assert x.data_ptr() % 16
+    scale = torch.randn(3072, generator=torch.Generator().manual_seed(5)).to("cuda")
+    _assert_rmsnorm_matches_plain(x, scale)
+    x = torch.randn(40, 3072, generator=torch.Generator().manual_seed(6)).to("cuda", dtype)
+    sc = _misaligned((3072,), torch.float32, seed=7)   # scale not 16-byte aligned
+    assert x.data_ptr() % 16 == 0 and sc.data_ptr() % 16
+    _assert_rmsnorm_matches_plain(x, sc)
+
+
 @pytest.mark.cuda
 def test_model_ops_launch_kernels_on_cuda_and_match_cpu(cuda):
     """``ops.flash_attention`` / ``ops.rmsnorm`` return tensors on the
@@ -353,6 +395,128 @@ def test_decode_attention_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="bfloat16"):
         tda.decode_attention(q, k.bfloat16(), v, lens)
     assert tda.launches == n0
+
+
+def _decode_qkv(b, s, h, hk, hd, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(*shape, generator=g).to("cuda", dtype)
+            for shape in ((b, 1, h, hd), (b, s, hk, hd), (b, s, hk, hd)))
+
+
+def _assert_decode_matches_plain(q, k, v, lens, window=0):
+    n0 = tda.launches
+    got = tda.decode_attention(q, k, v, lens, window=window)
+    torch.cuda.synchronize()
+    assert tda.launches == n0 + 1 and got.dtype == q.dtype and got.shape == q.shape
+    want = tref.decode_attention_ref(q, k, v, lens, window=window)
+    tol = 1e-5 if q.dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    return got
+
+
+def _lens(*values):
+    return torch.tensor(values, dtype=torch.int32, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["all 0", "all S - 1", "one long row", "many chunks",
+                                     "window at chunk edges"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_work_division_matches_plain(cuda, pattern, dtype):
+    """The grid divides each row's keys into chunks; these lens put the
+    visited rows [lo, hi] on the division's edges."""
+    b, s, h, hk, hd, window = 6, 1024, 24, 8, 128, 0
+    if pattern == "many chunks":
+        b, s, h, hk = 2, 4096, 8, 2
+    q, k, v = _decode_qkv(b, s, h, hk, hd, dtype, seed=len(pattern))
+    chunk = tda.chunk_for(b, hk, h, s, tda._sms(q.device))
+    if pattern == "all 0":
+        lens = _lens(*[0] * b)
+    elif pattern == "all S - 1":
+        lens = _lens(*[s - 1] * b)
+    elif pattern == "one long row":
+        lens = _lens(s - 1, 3, 17, 64, 0, chunk)
+    elif pattern == "many chunks":
+        assert -(-s // chunk) >= 16
+        lens = _lens(s - 1, 2500)
+    else:
+        # lo and hi on either side of a chunk boundary: one chunk exactly,
+        # one key past it, the first chunk, one key alone, a chunk and a key
+        window = chunk
+        lens = _lens(2 * chunk - 1, 2 * chunk, chunk - 1, chunk, 3 * chunk, s + 2)
+        _assert_decode_matches_plain(q, k, v, lens, window=1)
+    _assert_decode_matches_plain(q, k, v, lens, window=window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,hk", [(4, 4), (24, 8), (8, 1), (16, 1)])   # G 1, 3, 8, 16
+@pytest.mark.parametrize("hd", [16, 17, 48, 100, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_heads_and_widths_match_plain(cuda, h, hk, hd, dtype):
+    b, s = 3, 700
+    q, k, v = _decode_qkv(b, s, h, hk, hd, dtype, seed=h + hd)
+    _assert_decode_matches_plain(q, k, v, _lens(699, 255, 401))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", ["k", "v", "kv"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_misaligned_cache_matches_plain(cuda, offset, dtype):
+    # hd 128 would take the 16-byte copies; a cache that starts mid-allocation
+    # must send the kernel to its scalar loads instead
+    b, s, h, hk, hd = 3, 600, 24, 8, 128
+    q, k, v = _decode_qkv(b, s, h, hk, hd, dtype, seed=11)
+    if "k" in offset:
+        k = _misaligned(k.shape, dtype, seed=12)
+    if "v" in offset:
+        v = _misaligned(v.shape, dtype, seed=13)
+    assert any(t.data_ptr() % 16 for t in (k, v))
+    _assert_decode_matches_plain(q, k, v, _lens(599, 0, 300), window=0)
+    _assert_decode_matches_plain(q, k, v, _lens(599, 0, 300), window=100)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_is_deterministic_and_resets_its_tickets(cuda, dtype):
+    """Chunks merge in chunk order, whichever block finishes last, so two
+    calls give identical bits; the last block resets its row's ticket, so a
+    call after one with other lens is right and the tickets end at 0."""
+    b, s, h, hk, hd = 4, 1024, 24, 8, 128
+    q, k, v = _decode_qkv(b, s, h, hk, hd, dtype, seed=21)
+    assert tda.chunk_for(b, hk, h, s, tda._sms(q.device)) < s   # several chunks a row
+    lens = torch.randint(0, s, (b,), generator=torch.Generator().manual_seed(22),
+                         dtype=torch.int32).cuda()
+    first = _assert_decode_matches_plain(q, k, v, lens)
+    again = _assert_decode_matches_plain(q, k, v, lens)
+    assert torch.equal(first.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       again.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+    _assert_decode_matches_plain(q, k, v, torch.flip(lens, (0,)))
+    _assert_decode_matches_plain(q, k, v, _lens(*[s - 1] * b), window=300)
+    _assert_decode_matches_plain(q, k, v, lens)
+    assert all(int(t.abs().sum()) == 0 for t in tda._TICKETS.values())
+
+
+@pytest.mark.cuda
+def test_decode_attention_on_two_streams_matches_plain(cuda):
+    """Launches on two streams may overlap on the card; each stream merges
+    its chunks with tickets of its own."""
+    b, s, h, hk, hd = 4, 1024, 24, 8, 128
+    q, k, v = _decode_qkv(b, s, h, hk, hd, torch.bfloat16, seed=31)
+    assert tda.chunk_for(b, hk, h, s, tda._sms(q.device)) < s   # several chunks a row
+    lens = [_lens(1023, 5, 600, 300), _lens(100, 1023, 0, 900)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(8):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(tda.decode_attention(q, k, v, lens[i]))
+    torch.cuda.synchronize()
+    for ls, got in zip(lens, outs):
+        want = tref.decode_attention_ref(q, k, v, ls).float()
+        for o in got:
+            torch.testing.assert_close(o.float(), want, rtol=2e-2, atol=2e-2)
+    assert all(int(t.abs().sum()) == 0 for t in tda._TICKETS.values())
 
 
 @pytest.mark.cuda
