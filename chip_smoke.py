@@ -17,13 +17,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 with k^2);
   3. kernels  — each retrieval kernel against its plain torch version on
                 the card, at the shapes the main path gives it plus ragged
-                edges: max abs error, masked lanes exact, CUDA-event times of
-                kernel / plain version / one PyTorch library call, and the
-                bound from bytes and FLOPs at the card's datasheet peaks;
+                and misaligned edges: max abs error, masked lanes exact, the
+                top-10 ids of every row equal to the plain version's (up to
+                near-ties), two calls bit for bit; profiler device times of
+                the kernel and one PyTorch library call in turns over ROUNDS
+                rounds and of the plain version, beside the bound from bytes
+                and FLOPs at the card's datasheet peaks (GB/s, TFLOP/s and
+                the share of the bound);
   4. main path — launch counters set to 0, then ``sem_sim_join`` and
                 ``sem_search`` over the three indexes, counters read: each
                 kernel must have launched; recall@10 of both IVF flavours
-                against exact, search times, scanned bytes, peak memory;
+                against exact, search times, scanned bytes, peak memory; the
+                joins again through the plain versions on the card, whose
+                top-10 ids must be the kernel path's (up to near-ties);
   5. hard corpus — the same mixture with noise 0.065, where each centre's
                 rows straddle several lists: IVF fp32 and int8 at the nprobe
                 of ``recall_target=0.90`` must reach recall@10 >= 0.90 (and
@@ -181,7 +187,7 @@ _SOURCES = {"similarity": ("src/repro_torch/kernels/csrc/similarity.cu",
                                  "src/repro/kernels/decode_attention.py:55")}
 
 ORACLE = "llama3.2-3b"
-ROUNDS = 5   # kernel / library timings in turns, for the attention and rmsnorm rows
+ROUNDS = 5   # kernel / library timings in turns, for every kernel's row
 ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}   # atol + rtol * |plain|
 # The oracle's last-token log-probs, kernel path against the plain path
 # (attn_impl="full") on the same weights: in f32 they agree to 1e-4 (sums in
@@ -429,37 +435,98 @@ def recall(exact: np.ndarray, got: np.ndarray) -> float:
                           for e, g in zip(exact.tolist(), got.tolist())]))
 
 
+def topk_agree(got: torch.Tensor, want: torch.Tensor, k: int) -> int:
+    """The top-k ids of each row of a kernel's scores against the plain
+    version's: a row whose ids differ is allowed only where the plain scores
+    of the two id lists agree to TOL (a near-tie).  -> rows with identical
+    ids."""
+    gi = torch.topk(got, k, dim=1).indices
+    wv, wi = torch.topk(want, k, dim=1)
+    same = (gi == wi).all(dim=1)
+    if not bool(same.all()):
+        gap = float((want.gather(1, gi) - wv).abs()[~same].max())
+        assert gap <= TOL, f"top-{k} ids differ beyond a near-tie: {gap}"
+    return int(same.sum())
+
+
+def distinct_pairs(probes: torch.Tensor) -> torch.Tensor:
+    """The cluster of each distinct (query block, cluster) pair of probes
+    [nb, slots] whose id lies in [0, kc) (ivf_probes gives no other)."""
+    srt = probes.long().sort(dim=1).values
+    first = torch.ones_like(srt, dtype=torch.bool)
+    first[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    return srt[first]
+
+
+def retrieval_row(name, shape, err, run, plain_fn, lib_fn, lib_name, reps, nbytes, flops,
+                  bw, fp32) -> dict:
+    """Time a retrieval kernel by profiler device time, in turns with its
+    library call (``interleaved_ms``; alone when there is none), and its
+    plain version by ``plain_ms``; print its rates beside the bound."""
+    if lib_fn is not None:
+        ms, lib, ratios = interleaved_ms(run, lib_fn, reps)
+    else:
+        ms, lib, ratios = device_ms(run, reps), None, []
+        assert ms is not None, f"{name}: the profiler kept no record"
+    plain, pclock = plain_ms(plain_fn, 3)
+    bms, by = bound(nbytes, flops, bw, fp32)
+    log(f"{name} {shape}, device time (profiler): kernel {ms:.4f} ms "
+        f"({nbytes / ms / 1e6:.0f} GB/s, {flops / ms / 1e9:.1f} TFLOP/s, {bms / ms:.3f} of "
+        f"the {by} bound {bms:.4f} ms), plain {plain:.4f} ms ({pclock}), {lib_name} "
+        + (f"{lib:.4f} ms; median kernel / library {statistics.median(ratios):.3f} (each "
+           "round: " + ", ".join(f"{r:.3f}" for r in ratios) + ")" if lib is not None
+           else "not timed"))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
+                bound_by=by, nbytes=nbytes, flops=flops, clock="profiler", plain_clock=pclock,
+                shape=shape)
+
+
 def kernel_phase(args, idx_exact, idx_ivf, idx_q, queries, bw, fp32) -> dict:
     """Each kernel against its plain version at the main path's shapes."""
     dev = torch.device("cuda")
     out = {}
     q = torch.from_numpy(queries).to(dev)
 
-    # similarity: the exact join's shape, then ragged edges both ways
+    # similarity: the exact join's shape (its top-10 ids against the plain
+    # version's, two calls bit for bit), then ragged and misaligned edges
     c = idx_exact._device_vectors(idx_exact.vectors)
-    got = ksim.similarity(q, c)
-    err = float((got - ref.similarity_ref(q, c)).abs().max())
+    got, want = ksim.similarity(q, c), ref.similarity_ref(q, c)
+    err = float((got - want).abs().max())
     assert err <= TOL, err
-    del got
+    same = topk_agree(got, want, K)
+    assert torch.equal(got, ksim.similarity(q, c)), "similarity: two calls differ"
+    log(f"similarity q[{q.shape[0]},{DIM}] x c[{c.shape[0]},{DIM}]: max abs err {err:.3g}, "
+        f"top-{K} ids identical to the plain version's in {same} of {q.shape[0]} rows "
+        "(others near-ties), two calls identical")
+    del got, want
     g = torch.Generator(device="cuda").manual_seed(args.seed + 1)
-    for nq, nc, d in [(37, 1001, 17), (1, 129, 3), (65, 300, DIM)]:
-        a = torch.randn(nq, d, device=dev, generator=g)
-        b = torch.randn(nc, d, device=dev, generator=g)
+    for case in [(37, 1001, 17), (1, 129, 3), (65, 300, DIM), (128, 256, 32),
+                 (129, 1001, 383), (300, 40000, 64), "misaligned"]:
+        if case == "misaligned":
+            a, b = misaligned((70, DIM), torch.float32, g), misaligned((300, DIM), torch.float32, g)
+        else:
+            nq, nc, d = case
+            a = torch.randn(nq, d, device=dev, generator=g)
+            b = torch.randn(nc, d, device=dev, generator=g)
         err = max(err, float((ksim.similarity(a, b) - ref.similarity_ref(a, b)).abs().max()))
         a, b = a / a.norm(dim=1, keepdim=True), b / b.norm(dim=1, keepdim=True)
         err = max(err, float((ksim.similarity(a, b, normalize=False)
                               - ref.similarity_ref(a, b, normalize=False)).abs().max()))
     assert err <= TOL, err
     nq, nc = q.shape[0], c.shape[0]
-    ms = cuda_ms(lambda: ksim.similarity(q, c), 10)
-    plain = cuda_ms(lambda: ref.similarity_ref(q, c), 5)
-    lib = cuda_ms(lambda: torch.matmul(torch.nn.functional.normalize(q, dim=1),
-                                       torch.nn.functional.normalize(c, dim=1).T), 5)
-    nbytes = 4 * DIM * (nq + nc) + 4 * nq * nc
-    flops = 2 * nq * nc * DIM
-    out["similarity"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                             nbytes=nbytes, flops=flops, clock="events", plain_clock="events",
-                             shape=f"q[{nq},{DIM}] x c[{nc},{DIM}]")
+    norm = torch.nn.functional.normalize
+    # the shape of sem_search (one query; printed only, not the kernel's row)
+    q1 = q[:1]
+    ms1, lib1, r1 = interleaved_ms(lambda: ksim.similarity(q1, c),
+                                   lambda: torch.matmul(norm(q1, dim=1), norm(c, dim=1).T), 10)
+    log(f"similarity q[1,{DIM}] x c[{nc},{DIM}] (sem_search's shape), device time (profiler): "
+        f"kernel {ms1:.4f} ms ({4 * DIM * nc / ms1 / 1e6:.0f} GB/s of corpus), F.normalize + "
+        f"matmul {lib1:.4f} ms, median kernel / library {statistics.median(r1):.3f}")
+    out["similarity"] = retrieval_row(
+        "similarity", f"q[{nq},{DIM}] x c[{nc},{DIM}]", err, lambda: ksim.similarity(q, c),
+        lambda: ref.similarity_ref(q, c),
+        lambda: torch.matmul(norm(q, dim=1), norm(c, dim=1).T), "F.normalize + matmul", 10,
+        4 * DIM * (nq + nc) + 4 * nq * nc, 2 * nq * nc * DIM, bw, fp32)
 
     # the probes the IVF join computes (both IVF indexes share the quantizer)
     qp, nb = ref.pad_queries(q, 8)
@@ -481,10 +548,18 @@ def kernel_phase(args, idx_exact, idx_ivf, idx_q, queries, bw, fp32) -> dict:
                                                   dv["store_mask"], probes,
                                                   normalize=False)
             row_bytes, tiles = DIM + 4, dv["store_q"]      # int8 row + its scale
-        err = plane_err(run(), plain_fn())
-        # ragged edges: d=17 (scalar loads), block sizes 4 and 16, normalize in-kernel
+        got, want = run(), plain_fn()
+        err = plane_err(got, want)
+        same = topk_agree(got, want, K)
+        assert torch.equal(got, run()), f"{name}: two calls differ"
+        log(f"{name}: max abs err {err:.3g}, top-{K} ids identical to the plain version's "
+            f"in {same} of {got.shape[0]} rows (others near-ties), two calls identical")
+        del got, want
+        # ragged edges: d=17 and 1000, block sizes 1 to 16, L no multiple of 128,
+        # normalize in-kernel
         gg = torch.Generator(device="cuda").manual_seed(args.seed + 2)
-        for kc, L, d, bq in [(6, 128, 17, 8), (5, 256, DIM, 4), (7, 128, 64, 16)]:
+        for kc, L, d, bq in [(6, 128, 17, 8), (5, 256, DIM, 4), (7, 128, 64, 16),
+                             (5, 300, DIM, 2), (4, 77, 1000, 1)]:
             st = torch.randn(kc, L, d, device=dev, generator=gg)
             mk = (torch.rand(kc, L, device=dev, generator=gg) > 0.3).float()
             st = st / st.norm(dim=-1, keepdim=True) * mk[..., None]
@@ -501,12 +576,13 @@ def kernel_phase(args, idx_exact, idx_ivf, idx_q, queries, bw, fp32) -> dict:
                 e = plane_err(kivfq.cluster_scan_q(qq, sq, sc, mk, pb, block_q=bq),
                               ref.ivf_scan_q_ref(qq, sq, sc, mk, pb, block_q=bq))
             err = max(err, e)
-        ms = cuda_ms(run, 10)
-        plain = cuda_ms(plain_fn, 3)
         kc, L, _ = tiles.shape
         nbp, slots = probes.shape
         sizes = dv["store_mask"].sum(dim=1)                    # valid rows per cluster
-        valid_lanes = float(sizes[probes.long()].sum()) * 8   # scored (query, row) pairs
+        pairs = distinct_pairs(probes)
+        # scored (query, row) pairs: a block that probed one cluster from
+        # several slots needs its scores once (the other strips are copies)
+        valid_lanes = float(sizes[pairs].sum()) * 8
         uniq = torch.unique(probes.long())
         # each input read once: the valid rows of the distinct probed clusters
         # (padded lanes are masked, so need not be read), the whole mask, the
@@ -520,7 +596,7 @@ def kernel_phase(args, idx_exact, idx_ivf, idx_q, queries, bw, fp32) -> dict:
         gathered = nbp * slots * L * DIM * 4
         need = 2 * gathered + (gathered // 4 if name == "cluster_scan_q" else 0)
         free, _ = torch.cuda.mem_get_info()
-        lib = None
+        lib_fn = None
         if need < 0.9 * free:
             qb = qp.reshape(nbp, 8, DIM)
             pl = probes.long()
@@ -533,18 +609,16 @@ def kernel_phase(args, idx_exact, idx_ivf, idx_q, queries, bw, fp32) -> dict:
                     dv["store_mask"][pl][:, None] > 0,
                     torch.einsum("bqd,bsld->bqsl", qb, dv["store_q"][pl].float())
                     * dv["store_scales"][pl][:, None], MASKED_SCORE)
-            lib = cuda_ms(lib_fn, 3)
         else:
             log(f"{name}: library einsum skipped, it may need "
                 f"{need / 2**30:.1f} GiB of {free / 2**30:.1f} GiB free")
-        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                         nbytes=nbytes, flops=flops, clock="events", plain_clock="events",
-                         shape=f"q[{qp.shape[0]},{DIM}] probes[{nbp},{slots}] "
-                               f"tiles[{kc},{L},{DIM}] distinct_probed={len(uniq)}")
+        out[name] = retrieval_row(
+            name, f"q[{qp.shape[0]},{DIM}] probes[{nbp},{slots}] tiles[{kc},{L},{DIM}] "
+                  f"distinct_probed={len(uniq)} distinct_pairs={len(pairs)}", err, run,
+            plain_fn, lib_fn,
+            "gathered einsum", 5, nbytes, flops, bw, fp32)
         torch.cuda.empty_cache()
     for name, r in out.items():
-        r["bound_ms"] = 1e3 * max(r["nbytes"] / bw, r["flops"] / fp32)
-        r["bound_by"] = "bytes" if r["nbytes"] / bw >= r["flops"] / fp32 else "operations"
         log(f"kernel {name}: {r['shape']} err={r['max_abs_err']:.3g} "
             f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']} "
             f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) bytes={r['nbytes']} "
@@ -565,9 +639,31 @@ def main_path(corpus_texts, query_texts, emb, indexes) -> tuple[dict, dict]:
         assert ids.shape == (N_QUERIES, K) and np.isfinite(scores).all()
         hits, st1 = sem_search(idx, query_texts[0], emb, k=K)
         assert hits == ids[0].tolist(), (name, hits, ids[0])
-        results[name] = dict(ids=ids, search_s=dt, details=st)
+        results[name] = dict(ids=ids, scores=scores, search_s=dt, details=st)
     launches = {name: mod.launches for name, mod in _KERNELS}
     return results, launches
+
+
+def plain_path_agrees(query_texts, emb, indexes, results) -> None:
+    """Every join of the counted main path again through the plain versions
+    on the card (``ops.DEFAULT_IMPL = "ref"``): the top-K ids of each query
+    must be the kernel path's, a row that differs only where the scores at
+    each rank agree to TOL (a near-tie)."""
+    saved = ops.DEFAULT_IMPL
+    ops.DEFAULT_IMPL = "ref"
+    try:
+        plain = {name: sem_sim_join(query_texts, idx, emb, k=K)[:2]
+                 for name, idx in indexes.items()}
+    finally:
+        ops.DEFAULT_IMPL = saved
+    for name, (scores, ids) in plain.items():
+        got_ids, got = results[name]["ids"], results[name]["scores"]
+        same = (got_ids == ids).all(axis=1)
+        gap = float(np.abs(got - scores)[~same].max()) if (~same).any() else 0.0
+        assert gap <= TOL, f"{name}: ids differ from the plain path beyond a near-tie ({gap})"
+        log(f"sem_sim_join {name}: top-{K} ids identical to the plain path's (the plain "
+            f"versions on the card) in {int(same.sum())} of {len(same)} queries, max score "
+            f"difference at a rank {float(np.abs(got - scores).max()):.3g}")
 
 
 def breakdown(name, idx, query_texts, emb) -> None:
@@ -1651,6 +1747,7 @@ def main() -> None:
             f"build_s={build[name]:.2f}")
     log(f"max_memory_allocated during the main path "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    plain_path_agrees(query_texts, emb, indexes, results)
     for name, idx in indexes.items():
         breakdown(name, idx, query_texts, emb)
     assert rec["ivf"] >= 0.90, rec

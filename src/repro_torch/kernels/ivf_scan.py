@@ -5,7 +5,9 @@ One pipeline per search, all on the index's device:
   1. centroid scoring  — queries x coarse-quantizer centroids (one fp32 matmul);
   2. probe selection   — per-query top-``nprobe`` clusters (stable sort);
   3. cluster scan      — the hand-written CUDA kernel ``csrc/ivf_scan.cu``:
-     a masked gather-scan over *only the probed clusters'* vectors.
+     a masked gather-scan over *only the probed clusters'* vectors, run
+     cluster by cluster from the probe lists of :func:`probe_lists`, so
+     each valid row of a probed cluster is read from device memory once.
 
 The inverted file is laid out as padded per-cluster tiles ``store [kc, L, d]``
 with a validity mask ``mask [kc, L]``.  A block of ``block_q`` queries scans
@@ -29,15 +31,30 @@ from repro_torch.kernels.ref import (_sharded_scan, _unitize, ivf_probes,
 
 launches = 0   # kernel launches since the caller last set this to 0
 
-BLOCK_Q = (1, 2, 4, 8, 16)          # query-block sizes the kernel is built for
-SMEM_LIMIT = 227 * 1024             # dynamic shared memory one CTA may hold
+BLOCK_Q = (1, 2, 4, 8, 16)          # query-block sizes the kernels are built for
 
-_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int] + \
+_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int] + \
     [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
+def probe_lists(probe_blocks: torch.Tensor, kc: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The probe map inverted, on the tensors' device with no host sync:
+    probe_blocks [nb, slots] -> (order [nb*slots] int32, starts [kc+2] int32).
+
+    ``order`` lists the flat pair indices ``b*slots + s`` grouped by the
+    cluster they probe, in ascending pair order within a cluster (a stable
+    sort), and ``order[starts[p]:starts[p+1]]`` are cluster p's probers; ids
+    outside ``[0, kc)`` form the last group, p = kc."""
+    flat = probe_blocks.reshape(-1).long()
+    key = torch.where((flat >= 0) & (flat < kc), flat, torch.full_like(flat, kc))
+    keys, order = torch.sort(key, stable=True)
+    starts = torch.searchsorted(keys, torch.arange(kc + 2, device=keys.device))
+    return order.to(torch.int32), starts.to(torch.int32)
+
+
 def check_scan_shapes(queries, store, mask, probe_blocks, block_q: int) -> None:
-    """Shape and launch-limit checks shared by both cluster scans."""
+    """Shape checks shared by both cluster scans (the int8 scan's launch
+    limits are ``ivf_scan_q.check_launch``)."""
     nq, d = queries.shape
     kc, L, ds = store.shape
     nb, _ = probe_blocks.shape
@@ -48,11 +65,7 @@ def check_scan_shapes(queries, store, mask, probe_blocks, block_q: int) -> None:
     if nq != nb * block_q:
         raise ValueError("queries must be pre-padded to full blocks")
     if block_q not in BLOCK_Q:
-        raise ValueError(f"block_q={block_q}: the kernel is built for {BLOCK_Q}")
-    if (block_q * d + 256) * 4 > SMEM_LIMIT:
-        raise ValueError(f"a {block_q}x{d} query block does not fit in shared memory")
-    if nb > 65535:
-        raise ValueError(f"{nb} query blocks exceed one launch (65535)")
+        raise ValueError(f"block_q={block_q}: the kernels are built for {BLOCK_Q}")
 
 
 def cluster_scan(queries: torch.Tensor, store: torch.Tensor, mask: torch.Tensor,
@@ -74,9 +87,10 @@ def cluster_scan(queries: torch.Tensor, store: torch.Tensor, mask: torch.Tensor,
     if out.numel() == 0:
         return out
     fn = _build.function("ivf_scan", "repro_cluster_scan", _ARGS)
+    order, starts = probe_lists(probe_blocks, kc)
     rc = fn(queries.data_ptr(), store.data_ptr(), mask.data_ptr(),
-            probe_blocks.data_ptr(), out.data_ptr(), nb, block_q, kc, L, d,
-            slots, int(normalize), dev.index, _build.stream_of(queries))
+            order.data_ptr(), starts.data_ptr(), out.data_ptr(), nb, block_q, kc,
+            L, d, slots, int(normalize), dev.index, _build.stream_of(queries))
     _build.check(rc, "ivf_scan", "cluster_scan kernel")
     launches += 1
     return out

@@ -27,8 +27,21 @@ from repro_torch.kernels.ref import (_sharded_scan, _unitize, ivf_probes,
 
 launches = 0   # kernel launches since the caller last set this to 0
 
+SMEM_LIMIT = 227 * 1024             # dynamic shared memory one CTA may hold
+
 _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int] + \
     [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def check_launch(queries: torch.Tensor, probe_blocks: torch.Tensor, block_q: int) -> None:
+    """The launch limits of ``csrc/cluster_scan.cuh``: one CTA per (query
+    block, probe slot), the grid's rows are the blocks, and each CTA holds
+    its ``block_q x d`` query block in shared memory."""
+    d, nb = queries.shape[1], probe_blocks.shape[0]
+    if (block_q * d + 256) * 4 > SMEM_LIMIT:
+        raise ValueError(f"a {block_q}x{d} query block does not fit in shared memory")
+    if nb > 65535:
+        raise ValueError(f"{nb} query blocks exceed one launch (65535)")
 
 
 def cluster_scan_q(queries: torch.Tensor, store_q: torch.Tensor,
@@ -46,6 +59,7 @@ def cluster_scan_q(queries: torch.Tensor, store_q: torch.Tensor,
     _build.require(mask, "mask", torch.float32, 2, dev)
     _build.require(probe_blocks, "probe_blocks", torch.int32, 2, dev)
     check_scan_shapes(queries, store_q, mask, probe_blocks, block_q)
+    check_launch(queries, probe_blocks, block_q)
     if scales.shape != mask.shape:
         raise ValueError(f"scales shape {tuple(scales.shape)} != {tuple(mask.shape)}")
     kc, L, d = store_q.shape

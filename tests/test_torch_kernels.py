@@ -126,6 +126,28 @@ def test_ivf_probes_break_ties_to_lowest_index():
     np.testing.assert_array_equal(_np(got)[0, :3], [0, 1, 2])
 
 
+@pytest.mark.parametrize("kc,nb,slots,lo,hi", [
+    (6, 3, 16, 0, 6),        # every id in range
+    (6, 4, 8, -2, 9),        # ids below 0 and at or past kc: the last list
+    (5, 7, 24, 0, 2),        # skew: clusters 2..4 probed by nobody
+    (1, 1, 1, 0, 1),
+])
+def test_probe_lists_invert_probe_blocks(kc, nb, slots, lo, hi):
+    """The scan's probe lists against a loop over the (block, slot) pairs:
+    each cluster's probers in pair order, ids outside [0, kc) in list kc."""
+    pb = np.random.default_rng(kc + nb).integers(lo, hi, size=(nb, slots)).astype(np.int32)
+    order, starts = tivf.probe_lists(_t(pb), kc)
+    assert order.dtype == torch.int32 and starts.dtype == torch.int32
+    assert starts.shape == (kc + 2,) and order.shape == (nb * slots,)
+    lists = [[] for _ in range(kc + 1)]
+    for pair, p in enumerate(pb.reshape(-1).tolist()):
+        lists[p if 0 <= p < kc else kc].append(pair)
+    order, starts = _np(order), _np(starts)
+    assert starts[0] == 0 and starts[-1] == nb * slots
+    for p in range(kc + 1):
+        assert order[starts[p]:starts[p + 1]].tolist() == lists[p]
+
+
 @pytest.mark.parametrize("d", [17, 64, 384])
 @pytest.mark.parametrize("normalize", [True, False])
 def test_ivf_scan_ref_matches_jnp(d, normalize):
@@ -619,10 +641,14 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
         tivf.check_scan_shapes(q, store, mask, pb, 8)
     with pytest.raises(ValueError, match="built for"):
         tivf.check_scan_shapes(torch.zeros((6, 8)), store, mask, pb, 3)
+    # a 16 x 4096 query block: the fp32 scan streams d and takes it, the
+    # int8 scan holds the block in shared memory and refuses it
+    wide_q, wide_pb = torch.zeros((32, 4096)), torch.zeros((2, 16), dtype=torch.int32)
+    tivf.check_scan_shapes(wide_q, torch.zeros((3, 128, 4096)), mask, wide_pb, 16)
     with pytest.raises(ValueError, match="shared memory"):
-        tivf.check_scan_shapes(torch.zeros((32, 4096)),
-                               torch.zeros((3, 128, 4096)), mask,
-                               torch.zeros((2, 16), dtype=torch.int32), 16)
+        tivfq.check_launch(wide_q, wide_pb, 16)
+    with pytest.raises(ValueError, match="one launch"):
+        tivfq.check_launch(torch.zeros((65536, 8)), torch.zeros((65536, 8), dtype=torch.int32), 1)
     with pytest.raises(ValueError, match="CUDA tensor"):
         from repro_torch.kernels import _build
         _build.require(q, "queries", torch.float32, 2)

@@ -81,7 +81,15 @@ def _ivf_world(kc, L, d, nq, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("nq,nc,d", [(5, 7, 17), (64, 64, 64), (100, 300, 384),
-                                     (1, 129, 3)])
+                                     (1, 129, 3),
+                                     # whole 128 x 128 tiles, d whole 32-float chunks
+                                     (128, 128, 32), (256, 384, 384),
+                                     # ragged in nq, nc and d; d % 4 != 0 (4-byte copies)
+                                     (129, 257, 33), (130, 1001, 383),
+                                     # 2 x 397 tiles: each persistent CTA walks several
+                                     (200, 50693, 64),
+                                     # nq <= 64 takes 64-row tiles; many of them
+                                     (33, 20000, 384), (64, 1000, 99)])
 @pytest.mark.parametrize("normalize", [True, False])
 def test_similarity_kernel_matches_plain(cuda, nq, nc, d, normalize):
     rng = np.random.default_rng(nq + nc + d)
@@ -101,7 +109,11 @@ def test_similarity_kernel_matches_plain(cuda, nq, nc, d, normalize):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kc,L,d,bq,nprobe", [(6, 128, 17, 8, 2), (10, 256, 384, 8, 3),
                                               (5, 128, 64, 4, 2), (7, 384, 384, 16, 2),
-                                              (4, 128, 32, 1, 2)])
+                                              (4, 128, 32, 1, 2), (6, 200, 40, 2, 3),
+                                              # L no multiple of the 128-row chunk
+                                              (5, 300, 384, 8, 3), (3, 77, 17, 4, 2),
+                                              # d of many 32-float stages
+                                              (4, 160, 1000, 8, 2)])
 @pytest.mark.parametrize("normalize", [True, False])
 def test_cluster_scan_kernels_match_plain(cuda, kc, L, d, bq, nprobe, normalize):
     q, _, store, mask, sq, sc = _ivf_world(kc, L, d, 3 * bq, seed=kc + d)
@@ -117,6 +129,104 @@ def test_cluster_scan_kernels_match_plain(cuda, kc, L, d, bq, nprobe, normalize)
     _assert_plane(got, tref.ivf_scan_q_ref(q, sq, sc, mask, pb, block_q=bq,
                                            normalize=normalize))
     assert (tivf.launches, tivfq.launches) == (n0[0] + 1, n0[1] + 1)
+
+
+def _similarity_case(case, normalize, rng):
+    q = rng.normal(size=(70, 384)).astype(np.float32)
+    c = rng.normal(size=(300, 384)).astype(np.float32)
+    if not normalize:
+        q, c = _unit(q), _unit(c)
+    if case == "zero rows":          # the 1e-18 clamp: a zero row scores 0
+        q[[0, 5, 69]] = 0.0
+        c[[0, 127, 128, 299]] = 0.0
+    qt, ct = _t(q).cuda(), _t(c).cuda()
+    if case in ("unaligned q", "unaligned both"):   # 4 bytes past a 16-byte boundary
+        qt = torch.cat([qt.new_zeros(1), qt.reshape(-1)])[1:].view(70, 384)
+    if case in ("unaligned c", "unaligned both"):
+        ct = torch.cat([ct.new_zeros(1), ct.reshape(-1)])[1:].view(300, 384)
+    return qt, ct
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["zero rows", "unaligned q", "unaligned c", "unaligned both"])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_similarity_kernel_edges_match_plain(cuda, case, normalize):
+    q, c = _similarity_case(case, normalize, np.random.default_rng(5))
+    if case.startswith("unaligned"):
+        assert (q.data_ptr() % 16 != 0) or (c.data_ptr() % 16 != 0)
+    torch.testing.assert_close(tsim.similarity(q, c, normalize=normalize),
+                               tref.similarity_ref(q, c, normalize=normalize), **TOL)
+
+
+@pytest.mark.cuda
+def test_similarity_kernel_is_deterministic(cuda):
+    rng = np.random.default_rng(6)
+    q = _t(rng.normal(size=(256, 384)).astype(np.float32)).cuda()
+    c = _t(rng.normal(size=(20000, 384)).astype(np.float32)).cuda()
+    assert torch.equal(tsim.similarity(q, c), tsim.similarity(q, c))
+
+
+def _scan_case(pattern, rng):
+    """(queries, store, mask, probe_blocks, block_q) for a probe pattern the
+    cluster-major scan could get wrong."""
+    kc, L, d, bq, nb, slots = 6, 300, 64, 8, 5, 6
+    if pattern == "every block probes one cluster, many groups":
+        nb, slots = 40, 16             # 40 distinct blocks, 640 probers of cluster 2
+    q, _, store, mask, _, _ = _ivf_world(kc, L, d, nb * bq, seed=11)
+    pb = rng.integers(0, kc, size=(nb, slots))
+    if pattern == "empty chunk":       # rows 128..255 of cluster 1 all masked
+        mask[1, 128:256] = 0.0
+        store[1, 128:256] = 0.0
+        pb[:, 0] = 1
+    elif pattern == "duplicates in a block":
+        pb[0, :] = 3
+        pb[2, 1::2] = 4
+    elif pattern == "one cluster probed by every block":
+        pb[:, 0] = 2
+    elif pattern == "every block probes one cluster, many groups":
+        pb[:, :] = 2
+    elif pattern == "a cluster nobody probes":
+        pb = rng.integers(0, 3, size=(nb, slots))   # clusters 3..5 unprobed
+    elif pattern == "ids -1 and kc":
+        pb[0, 0], pb[1, 2], pb[4, 5] = -1, kc, kc + 7
+    return q, store, mask, pb.astype(np.int32), bq
+
+
+SCAN_PATTERNS = ["empty chunk", "duplicates in a block", "one cluster probed by every block",
+                 "every block probes one cluster, many groups", "a cluster nobody probes",
+                 "ids -1 and kc"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", SCAN_PATTERNS)
+@pytest.mark.parametrize("normalize", [True, False])
+def test_cluster_scan_probe_patterns_match_plain(cuda, pattern, normalize):
+    q, store, mask, pb, bq = _scan_case(pattern, np.random.default_rng(7))
+    q = q if normalize else _unit(q)
+    q, store, mask, pb = (_t(a).to(cuda) for a in (q, store, mask, pb))
+    got = tivf.cluster_scan(q, store, mask, pb, block_q=bq, normalize=normalize)
+    # the plain version takes ids in [0, kc) only: an id outside scores
+    # MASKED_SCORE over its whole strip
+    bad = (pb < 0) | (pb >= store.shape[0])
+    want = tref.ivf_scan_ref(q, store, mask, torch.where(bad, 0, pb), block_q=bq,
+                             normalize=normalize)
+    strip = bad.repeat_interleave(store.shape[1], dim=1).repeat_interleave(bq, dim=0)
+    _assert_plane(got, torch.where(strip, MASKED_SCORE, want))
+    # two calls give the same bits
+    assert torch.equal(got, tivf.cluster_scan(q, store, mask, pb, block_q=bq,
+                                              normalize=normalize))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", [1, 3, 4])
+def test_sharded_cluster_scan_matches_plain(cuda, n_shards):
+    """store[lo:hi] views through the sharded entry, L no multiple of 128."""
+    q, cents, store, mask, _, _ = _ivf_world(7, 300, 48, 21, seed=12)
+    q, cents, store, mask = (_t(a).to(cuda) for a in (q, cents, store, mask))
+    got = tivf.sharded_ivf_search(q, cents, store, mask, nprobe=3, n_shards=n_shards)
+    want = tref.sharded_ivf_search_ref(q, cents, store, mask, nprobe=3, n_shards=n_shards)
+    _assert_plane(got[0], want[0])
+    assert torch.equal(got[1], want[1])
 
 
 def _ops_run(device):

@@ -1,29 +1,55 @@
-"""Time the ``decode_attention`` and ``rmsnorm`` kernels of several source
-trees in turns on one CUDA card, each beside its PyTorch library call.
+"""Time the hand-written kernels of several source trees in turns on one
+CUDA card, each beside its PyTorch library call.
 
     python3 tools/kernel_ab.py TREE [TREE ...] [--rounds N] [--seed N]
+                               [--groups retrieval,model]
 
 A TREE is the root of a checkout of this repository (its ``src/`` holds
 ``repro_torch``); to compare a variant, unpack a copy of the tree
 (``git archive``) into an ignored directory and edit it there.
 Each tree is measured in a process of its own (two trees of one package
 cannot share one), in the order A B B A A B ... over ``--rounds`` rounds,
-so that a drift of the card's clocks reaches every tree; each builds its
-two kernel libraries into its own ``build/kernels/`` first.
+so that a drift of the card's clocks reaches every tree; each builds the
+kernel libraries it times into its own ``build/kernels/`` first.
 
-Shapes are those of ``chip_smoke.py``'s phases 7 and 9: ``decode_attention``
-at q [32,1,24,128], k/v [32,1024,8,128] with random lens (f32 and bf16,
-against SDPA with a bool mask and GQA; bf16 also with every lens at S - 1),
-``rmsnorm`` at x [16384, 3072]
-bf16 (against ``F.rms_norm``), and ``x.clone()`` of that x, a copy of the
-same bytes.  Besides, ``decode_attention`` bf16 at small batches, where
-``chunk_for`` decides whether a row's keys split into several chunks: the
-engine's default 8 slots at S 1024 (random lens and lens S - 1), the paged
-phase's 8 rows of 128 positions, and 2 rows of 4096.  Times are profiler device time per call.
-Prints the card's name and power limit, then one line per tree and kernel
-(median kernel ms, library ms, the ratio of each of the tree's runs, GB/s),
-and exits non-zero if a kernel disagrees with its plain version or the
-profiler keeps no record of a timing.
+Group ``retrieval``: the three retrieval kernels at ``chip_smoke.py``'s
+phase-3 shapes, on the same data.  The corpus is ``chip_smoke.make_corpus``'s
+mixture drawn the same way from ``--seed`` (1,000,000 x 384 fp32 unit rows
+around 1000 unit centres, noise 0.04 per coordinate, then 256 queries), and
+the IVF store is built from it by the tree's own ``IVFIndex(n_clusters=256,
+nprobe=8)``, whose seeded host k-means gives the smoke's store (kc 256, L
+7040 at seed 0), mask and centroids; the int8 tiles are ``quantize_tiles``
+of that store, as ``IVFIndex(quantize="int8")`` makes them.  The probes are
+``ivf_probes`` of the unitized, block-padded queries (32 blocks x 64 slots).
+``similarity`` q [256,384] x c [1M,384] (and q [1,384], ``sem_search``'s
+shape) runs against ``F.normalize`` + ``matmul``; ``cluster_scan`` and
+``cluster_scan_q`` against one gathered ``einsum`` over the whole batch.
+Bounds: the larger of the bytes each input read once and each output
+written once (3.35 TB/s; for the scans, the valid rows of the distinct
+probed clusters, the mask, the queries, the probe ids and the output plane)
+and the fp32 SIMT operations (67 TFLOP/s; for the scans, the valid rows of
+each distinct (query block, cluster) pair against the block's 8 queries: a
+block that probed a cluster from several slots needs its scores once).
+
+Group ``model``: ``decode_attention`` at q [32,1,24,128], k/v
+[32,1024,8,128] with random lens (f32 and bf16, against SDPA with a bool
+mask and GQA; bf16 also with every lens at S - 1), ``rmsnorm`` at x
+[16384, 3072] bf16 (against ``F.rms_norm``), and ``x.clone()`` of that x, a
+copy of the same bytes (``chip_smoke.py``'s phases 7 and 9).  Besides,
+``decode_attention`` bf16 at small batches, where ``chunk_for`` decides
+whether a row's keys split into several chunks: the engine's default 8
+slots at S 1024 (random lens and lens S - 1), the paged phase's 8 rows of
+128 positions, and 2 rows of 4096.
+
+Times are profiler device time per call (every kernel a call launches,
+the cluster scans' probe inversion included).  Prints the card's name and
+power limit, then one line per tree and kernel (median kernel ms, library
+ms, the ratio of each of the tree's runs, GB/s, TFLOP/s, the bound and its
+share), and exits non-zero if a kernel disagrees with its plain version or
+the profiler keeps no record of a timing.  A retrieval kernel that
+disagrees is still timed and its line printed with ``DISAGREES``, so a
+variant tree that leaves out part of a kernel's work (an ablation) can be
+read; the run then exits non-zero.
 """
 from __future__ import annotations
 
@@ -35,6 +61,11 @@ import subprocess
 import sys
 
 PEAK_BW = 3.35e12   # H100 SXM device memory, bytes/s (NVIDIA datasheet)
+PEAK_FP32 = 67e12   # H100 SXM fp32 outside the tensor cores, FLOP/s (datasheet)
+GROUPS = {"retrieval": ("similarity", "ivf_scan", "ivf_scan_q"),
+          "model": ("rmsnorm", "decode_attention")}
+MASKED_SCORE = -1e30
+RETRIEVAL = ("similarity", "similarity, one query", "cluster_scan", "cluster_scan_q")
 
 
 # A copy of chip_smoke.device_ms, not an import of it: chip_smoke puts the
@@ -61,19 +92,119 @@ def device_ms(torch, fn, reps: int, tries: int = 3) -> float:
     sys.exit(f"device_ms: the profiler kept no record of {reps} calls in {tries} windows")
 
 
-def child(tree: str, seed: int) -> None:
+def corpus(torch, seed: int, rows: int = 1_000_000, nq: int = 256, dim: int = 384):
+    """``chip_smoke.make_corpus``'s mixture, drawn the same way from ``seed``
+    on the card: (corpus [rows, dim], queries [nq, dim]) unit rows."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    centres = torch.randn(1000, dim, device="cuda", generator=g)
+    centres /= centres.norm(dim=1, keepdim=True)
+
+    def draw(n):
+        lab = torch.randint(0, 1000, (n,), device="cuda", generator=g)
+        x = centres[lab] + 0.04 * torch.randn(n, dim, device="cuda", generator=g)
+        return x / x.norm(dim=1, keepdim=True)
+    c = draw(rows)
+    return c, draw(nq)
+
+
+def ivf_store(torch, c, q):
+    """The smoke's IVF store over corpus ``c`` by the importing tree's own
+    ``IVFIndex(n_clusters=256, nprobe=8)`` and the probes of queries ``q``
+    -> (index, block-padded unit queries [nb*8, d], probes [nb, 64])."""
+    from repro_torch.index.ivf_index import IVFIndex
+    from repro_torch.kernels import ref
+    idx = IVFIndex(c.cpu().numpy(), n_clusters=256, nprobe=8)
+    qp, _ = ref.pad_queries(q, 8)
+    qp = ref._unitize(qp)
+    return idx, qp, ref.ivf_probes(qp, idx._dev["centroids"], 8, 8)
+
+
+def retrieval_rows(torch, seed: int) -> dict:
+    """The three retrieval kernels on the smoke's data (module docstring)."""
+    from repro_torch.index.quant import quantize_tiles
+    from repro_torch.kernels import ivf_scan as kivf
+    from repro_torch.kernels import ivf_scan_q as kivfq
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import similarity as ksim
+
+    c, q = corpus(torch, seed)
+    dim, nq = c.shape[1], q.shape[0]
+    out = {}
+    norm = torch.nn.functional.normalize
+    err = float((ksim.similarity(q, c) - ref.similarity_ref(q, c)).abs().max())
+    out["similarity"] = dict(
+        ms=device_ms(torch, lambda: ksim.similarity(q, c), 10),
+        lib=device_ms(torch, lambda: torch.matmul(norm(q, dim=1), norm(c, dim=1).T), 10),
+        nbytes=4 * dim * (nq + c.shape[0]) + 4 * nq * c.shape[0],
+        flops=2 * nq * c.shape[0] * dim, err=err)
+
+    q1 = q[:1]                                              # sem_search's shape
+    err = float((ksim.similarity(q1, c) - ref.similarity_ref(q1, c)).abs().max())
+    out["similarity, one query"] = dict(
+        ms=device_ms(torch, lambda: ksim.similarity(q1, c), 10),
+        lib=device_ms(torch, lambda: torch.matmul(norm(q1, dim=1), norm(c, dim=1).T), 10),
+        nbytes=4 * dim * (1 + c.shape[0]) + 4 * c.shape[0], flops=2 * c.shape[0] * dim,
+        err=err)
+    idx, qp, probes = ivf_store(torch, c, q)
+    del c
+    store, mask = idx._dev["store"], idx._dev["store_mask"]
+    sq, ssc = (torch.from_numpy(a).cuda() for a in quantize_tiles(idx.store))
+    kc, L, _ = store.shape
+    nb, slots = probes.shape
+    pl = probes.long()
+    sizes = mask.sum(dim=1)
+    uniq = torch.unique(pl)
+    srt = pl.sort(dim=1).values                             # distinct (block, cluster) pairs
+    first = torch.ones_like(srt, dtype=torch.bool)
+    first[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    pairs = srt[first]
+    flops = int(2 * dim * float(sizes[pairs].sum()) * 8)
+    qb = qp.reshape(nb, 8, dim)
+    for name, row_bytes, run, plain, lib in [
+            ("cluster_scan", 4 * dim,
+             lambda: kivf.cluster_scan(qp, store, mask, probes, normalize=False),
+             lambda: ref.ivf_scan_ref(qp, store, mask, probes, normalize=False),
+             lambda: torch.where(mask[pl][:, None] > 0,
+                                 torch.einsum("bqd,bsld->bqsl", qb, store[pl]), MASKED_SCORE)),
+            ("cluster_scan_q", dim + 4,
+             lambda: kivfq.cluster_scan_q(qp, sq, ssc, mask, probes, normalize=False),
+             lambda: ref.ivf_scan_q_ref(qp, sq, ssc, mask, probes, normalize=False),
+             lambda: torch.where(mask[pl][:, None] > 0,
+                                 torch.einsum("bqd,bsld->bqsl", qb, sq[pl].float())
+                                 * ssc[pl][:, None], MASKED_SCORE))]:
+        got, want = run(), plain()
+        masked = want <= MASKED_SCORE / 2
+        err = float((got[~masked] - want[~masked]).abs().max())
+        if not torch.equal(got[masked], want[masked]) or not torch.equal(got, run()):
+            err = float("inf")               # masked lanes differ, or two calls do
+        del got, want, masked
+        nbytes = int(sizes[uniq].sum()) * row_bytes + kc * L * 4 + qp.numel() * 4 \
+            + probes.numel() * 4 + qp.shape[0] * slots * L * 4
+        out[name] = dict(ms=device_ms(torch, run, 5), lib=device_ms(torch, lib, 3),
+                         nbytes=nbytes, flops=flops, err=err)
+        torch.cuda.empty_cache()
+    print(f"retrieval data: store [{kc}, {L}, {dim}], valid rows {int(sizes.sum())}, "
+          f"probes [{nb}, {slots}], distinct probed {len(uniq)}, distinct (block, cluster) "
+          f"pairs {len(pairs)}")
+    return out
+
+
+def child(tree: str, seed: int, groups: list[str]) -> None:
     sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
     import torch
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import decode_attention as kda
     from repro_torch.kernels import rmsnorm as krn
 
-    _build.SOURCES = ("rmsnorm", "decode_attention")
+    _build.SOURCES = tuple(n for gr in groups for n in GROUPS[gr])
     _build.build()
+    out = retrieval_rows(torch, seed) if "retrieval" in groups else {}
+    if "model" not in groups:
+        print(json.dumps(out))
+        return
     dev = torch.device("cuda")
     g = torch.Generator(device="cuda").manual_seed(seed)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    out = {}
     B, S, H, HK, HD = 32, 1024, 24, 8, 128
     for dt in (torch.bfloat16, torch.float32):
         q = torch.randn(B, 1, H, HD, device=dev, generator=g).to(dt)
@@ -138,10 +269,14 @@ def main() -> None:
     ap.add_argument("trees", nargs="+")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--groups", default="retrieval,model")
     ap.add_argument("--child", default=None)
     args = ap.parse_args()
+    groups = args.groups.split(",")
+    if not set(groups) <= set(GROUPS):
+        sys.exit(f"--groups: each of {sorted(GROUPS)}")
     if args.child is not None:
-        child(args.child, args.seed)
+        child(args.child, args.seed, groups)
         return
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -153,21 +288,33 @@ def main() -> None:
     runs: dict[str, list[dict]] = {t: [] for t in args.trees}
     for spec in order:
         res = subprocess.run([sys.executable, __file__, "_", "--child", spec,
-                              "--seed", str(args.seed)], capture_output=True, text=True)
+                              "--seed", str(args.seed), "--groups", args.groups],
+                             capture_output=True, text=True)
         if res.returncode != 0:
             sys.exit(f"{spec} failed:\n{res.stdout[-4000:]}\n{res.stderr[-4000:]}")
-        runs[spec].append(json.loads(res.stdout.strip().splitlines()[-1]))
-        print(f"ran {spec}: {res.stdout.strip().splitlines()[-1]}", flush=True)
+        *notes, last = res.stdout.strip().splitlines()
+        runs[spec].append(json.loads(last))
+        print("\n".join(f"ran {spec}: {line}" for line in (*notes, last)), flush=True)
+    wrong = []
     for spec, rs in runs.items():
         for name in rs[0]:
+            err = max(r[name]["err"] for r in rs)
+            bad = name in RETRIEVAL and not err <= 1e-5
+            if bad:
+                wrong.append(f"{spec} | {name}")
             ms = statistics.median(r[name]["ms"] for r in rs)
             lib = statistics.median(r[name]["lib"] for r in rs)
             ratios = ", ".join(f"{r[name]['ms'] / r[name]['lib']:.3f}" for r in rs)
-            nbytes = rs[0][name]["nbytes"]
+            nbytes, flops = rs[0][name]["nbytes"], rs[0][name].get("flops", 0)
+            bound = max(nbytes / PEAK_BW, flops / PEAK_FP32) * 1e3
+            by = "bytes" if nbytes / PEAK_BW >= flops / PEAK_FP32 else "operations"
             print(f"{spec} | {name}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s, "
-                  f"bound {nbytes / PEAK_BW * 1e3:.4f} ms), library {lib:.4f} ms; "
-                  f"kernel / library per run {ratios}; max abs err "
-                  f"{max(r[name]['err'] for r in rs):.3g}")
+                  f"{flops / ms / 1e9:.1f} TFLOP/s; bound {bound:.4f} ms by {by}, "
+                  f"share {bound / ms:.3f}), library {lib:.4f} ms; kernel / library per "
+                  f"run {ratios}; max abs err {err:.3g}"
+                  + (" DISAGREES with its plain version" if bad else ""))
+    if wrong:
+        sys.exit("these kernels disagree with their plain versions: " + "; ".join(wrong))
 
 
 if __name__ == "__main__":
