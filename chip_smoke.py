@@ -23,7 +23,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 the kernel and one PyTorch library call in turns over ROUNDS
                 rounds and of the plain version, beside the bound from bytes
                 and FLOPs at the card's datasheet peaks (GB/s, TFLOP/s and
-                the share of the bound);
+                the share of the bound); each kernel also at ``sem_search``'s
+                one-query shape, printed only;
   4. main path — launch counters set to 0, then ``sem_sim_join`` and
                 ``sem_search`` over the three indexes, counters read: each
                 kernel must have launched; recall@10 of both IVF flavours
@@ -555,11 +556,13 @@ def kernel_phase(args, idx_exact, idx_ivf, idx_q, queries, bw, fp32) -> dict:
         log(f"{name}: max abs err {err:.3g}, top-{K} ids identical to the plain version's "
             f"in {same} of {got.shape[0]} rows (others near-ties), two calls identical")
         del got, want
-        # ragged edges: d=17 and 1000, block sizes 1 to 16, L no multiple of 128,
-        # normalize in-kernel
+        # ragged edges: d=17, 33 and 1000, block sizes 1 to 16, L no multiple
+        # of 128, normalize in-kernel; int8 rows also 1 byte past a 16-byte
+        # boundary (byte loads)
         gg = torch.Generator(device="cuda").manual_seed(args.seed + 2)
-        for kc, L, d, bq in [(6, 128, 17, 8), (5, 256, DIM, 4), (7, 128, 64, 16),
-                             (5, 300, DIM, 2), (4, 77, 1000, 1)]:
+        for kc, L, d, bq, skew in [(6, 128, 17, 8, 0), (5, 256, DIM, 4, 0), (7, 128, 64, 16, 0),
+                                   (5, 300, DIM, 2, 0), (4, 77, 1000, 1, 0),
+                                   (5, 200, 33, 8, 0), (5, 300, DIM, 8, 1)]:
             st = torch.randn(kc, L, d, device=dev, generator=gg)
             mk = (torch.rand(kc, L, device=dev, generator=gg) > 0.3).float()
             st = st / st.norm(dim=-1, keepdim=True) * mk[..., None]
@@ -570,8 +573,9 @@ def kernel_phase(args, idx_exact, idx_ivf, idx_q, queries, bw, fp32) -> dict:
                 e = plane_err(kivf.cluster_scan(qq, st, mk, pb, block_q=bq),
                               ref.ivf_scan_ref(qq, st, mk, pb, block_q=bq))
             else:
-                sq = torch.randint(-127, 128, (kc, L, d), device=dev, generator=gg,
-                                   dtype=torch.int8)
+                buf = torch.randint(-128, 128, (kc * L * d + skew,), device=dev, generator=gg,
+                                    dtype=torch.int8)
+                sq = buf[skew:].view(kc, L, d)
                 sc = torch.rand(kc, L, device=dev, generator=gg) / (127 * d ** 0.5)
                 e = plane_err(kivfq.cluster_scan_q(qq, sq, sc, mk, pb, block_q=bq),
                               ref.ivf_scan_q_ref(qq, sq, sc, mk, pb, block_q=bq))
@@ -617,6 +621,42 @@ def kernel_phase(args, idx_exact, idx_ivf, idx_q, queries, bw, fp32) -> dict:
                   f"distinct_probed={len(uniq)} distinct_pairs={len(pairs)}", err, run,
             plain_fn, lib_fn,
             "gathered einsum", 5, nbytes, flops, bw, fp32)
+        torch.cuda.empty_cache()
+        # the shape of sem_search (one query padded to one block of 8, as
+        # ivf_search pads it; printed only, not the kernel's row)
+        q1, _ = ref.pad_queries(q[:1], 8)
+        q1 = ref._unitize(q1)
+        pb1 = ref.ivf_probes(q1, idx_ivf._dev["centroids"], NPROBE, 8)
+        pl1 = pb1.long()
+        if name == "cluster_scan":
+            run1 = lambda: kivf.cluster_scan(q1, dv["store"], dv["store_mask"], pb1,
+                                             normalize=False)
+            plain1 = lambda: ref.ivf_scan_ref(q1, dv["store"], dv["store_mask"], pb1,
+                                              normalize=False)
+            lib1 = lambda: torch.where(
+                dv["store_mask"][pl1][:, None] > 0,
+                torch.einsum("bqd,bsld->bqsl", q1[None], dv["store"][pl1]), MASKED_SCORE)
+        else:
+            run1 = lambda: kivfq.cluster_scan_q(q1, dv["store_q"], dv["store_scales"],
+                                                dv["store_mask"], pb1, normalize=False)
+            plain1 = lambda: ref.ivf_scan_q_ref(q1, dv["store_q"], dv["store_scales"],
+                                                dv["store_mask"], pb1, normalize=False)
+            lib1 = lambda: torch.where(
+                dv["store_mask"][pl1][:, None] > 0,
+                torch.einsum("bqd,bsld->bqsl", q1[None], dv["store_q"][pl1].float())
+                * dv["store_scales"][pl1][:, None], MASKED_SCORE)
+        got, want = run1(), plain1()
+        e1 = plane_err(got, want)
+        assert torch.equal(got, run1()), f"{name}, one query: two calls differ"
+        del got, want
+        u1 = torch.unique(pl1)
+        ms1, lib1_ms, r1 = interleaved_ms(run1, lib1, 5)
+        b1 = int(sizes[u1].sum()) * row_bytes
+        log(f"{name} q[8,{DIM}] probes[1,{pb1.shape[1]}] (sem_search's shape: one query "
+            f"padded to a block, {len(u1)} distinct clusters), device time (profiler): kernel "
+            f"{ms1:.4f} ms ({b1 / ms1 / 1e6:.0f} GB/s of valid rows), gathered einsum "
+            f"{lib1_ms:.4f} ms, median kernel / library {statistics.median(r1):.3f}; max abs "
+            f"err {e1:.3g}, two calls identical")
         torch.cuda.empty_cache()
     for name, r in out.items():
         log(f"kernel {name}: {r['shape']} err={r['max_abs_err']:.3g} "

@@ -15,37 +15,18 @@
 // the probed clusters are ~1.5 GB and the [256, 64*7040] plane 0.46 GB;
 // their dot products, 2*d per (query, valid row) pair, are ~49 GFLOP of
 // IEEE fp32, which at the SIMT rate outlasts the bytes.  So the design reads
-// each valid row once and spends the rest on a GEMM:
-//
-// * The wrapper inverts probe_blocks on the device (kernels/ivf_scan.py,
-//   probe_lists): `order` lists the (block, slot) pairs by cluster, stably
-//   (so by block within a cluster), `starts[p]..starts[p+1]` is cluster p's
-//   range, and bucket kc holds the ids outside [0, kc).
-// * One CTA of 128 threads per (cluster, 128-row chunk of L), clusters
-//   kc + 1 deep, four CTAs an SM.  A CTA whose cluster nobody probed exits;
-//   one whose chunk the mask leaves empty (padding) or whose bucket is kc
-//   writes MASKED_SCORE strips without reading the tile.
-// * Otherwise the chunk's rows are B of a simt_gemm.cuh GEMM (masked rows
-//   are zero-filled, not read; any d streams through the ring) and A is the
-//   queries of up to 64 / bq distinct probing blocks at a time: a block
-//   that probed the cluster from several slots is scored once and its strip
-//   written to each slot.  Warps whose 16-row band holds no query skip the
-//   FMAs.  Later groups of a heavily probed cluster re-read the chunk from
-//   L2.
-// * The epilogue writes each prober's [bq, 128] strip with 16-byte
-//   streaming stores when L % 4 == 0, applying the mask lane by lane.
-// Each score is one thread's ascending-k fp32 sum: no atomics, and a
-// prober's scores do not depend on its group, so two calls give the same
-// bits.
-#include "simt_gemm.cuh"
+// each valid row once and spends the rest on a GEMM, on the cluster-major
+// schedule of cluster_major.cuh: one CTA per (cluster, 128-row chunk), four
+// CTAs an SM, A the queries of a group of probing blocks, B the chunk's rows.
+// Here both go through one simt_gemm.cuh ring (masked rows are zero-filled,
+// not read; any d streams through it), and warps whose 16-row band holds no
+// query skip the FMAs.
+#include "cluster_major.cuh"
 
 namespace {
 
-using namespace repro_gemm;
-using G = Gemm<64, 16, 4>;   // 64 x 128 tiles, 128 threads, 4 stages of 16: four CTAs an SM
-
-constexpr float kMaskedScore = -1e30f;
-constexpr int kWindow = G::THREADS;   // prober ids staged per group formation
+using namespace repro_scan;
+using G = Gemm<kGroupRows, 16, 4>;   // 64 x 128 tiles, 128 threads, 4 stages of 16: four CTAs an SM
 static_assert(G::THREADS == BN, "one thread per row of a chunk");
 
 template <bool NORM>
@@ -55,13 +36,8 @@ cluster_scan_kernel(const float* __restrict__ queries, const float* __restrict__
                     const int32_t* __restrict__ starts, float* __restrict__ out,
                     int bq, int kc, int L, int d, int slots, int nchunks) {
   extern __shared__ __align__(16) float smem[];
-  float* sinv = smem + G::RING_FLOATS;               // [BM] 1/|q| of the group's rows
-  float* smask = sinv + G::BM;                       // [BN] mask of the chunk's rows
-  const float** rows = reinterpret_cast<const float**>(smask + BN);   // [ROWS]
-  int* swin = reinterpret_cast<int*>(rows + G::ROWS);   // [kWindow] prober ids
-  int* gb = swin + kWindow;                          // [BM] block of each group entry
-  int* gfirst = gb + G::BM;                          // [BM + 1] its first prober
-  int* gmeta = gfirst + G::BM + 1;                   // [2] entries, next prober
+  const float** rows = reinterpret_cast<const float**>(smem + G::RING_FLOATS);   // [ROWS]
+  Book& bk = *reinterpret_cast<Book*>(rows + G::ROWS);
 
   const int tid = threadIdx.x;                       // THREADS == BN: one chunk row each
   const int p = blockIdx.x / nchunks;
@@ -69,68 +45,26 @@ cluster_scan_kernel(const float* __restrict__ queries, const float* __restrict__
   const int start = __ldg(starts + p), end = __ldg(starts + p + 1);
   if (start == end) return;                          // nobody probed this cluster
   const int nrows = min(BN, L - l0);
-  const long long ld = static_cast<long long>(slots) * L;
-  const bool vec_out = (L & 3) == 0;
 
-  const float m = p < kc && tid < nrows ? __ldg(mask + static_cast<long long>(p) * L + l0 + tid)
-                                        : 0.f;
-  smask[tid] = m;
+  const float m = load_row<false>(bk, mask, nullptr, p, kc, L, l0, nrows);
   rows[G::BM + tid] = m > 0.f ? store + (static_cast<long long>(p) * L + l0 + tid) * d
                               : nullptr;
   if (!__syncthreads_or(m > 0.f)) {
-    // padding, or ids outside the store: every prober's strip is masked
-    const int per = bq * nrows;
-    for (int w0 = start; w0 < end; w0 += kWindow) {
-      const int wn = min(kWindow, end - w0);
-      if (tid < wn) swin[tid] = __ldg(order + w0 + tid);
-      __syncthreads();
-      for (int w = 0; w < wn; ++w) {
-        const int b = swin[w] / slots, s = swin[w] % slots;
-        float* dst = out + static_cast<long long>(b) * bq * ld + static_cast<long long>(s) * L + l0;
-        if (vec_out) {
-          const float4 m4 = make_float4(kMaskedScore, kMaskedScore, kMaskedScore, kMaskedScore);
-          for (int t = tid; t < per / 4; t += G::THREADS)
-            __stcs(reinterpret_cast<float4*>(dst + (4 * t / nrows) * ld + 4 * t % nrows), m4);
-        } else {
-          for (int t = tid; t < per; t += G::THREADS)
-            __stcs(dst + (t / nrows) * ld + t % nrows, kMaskedScore);
-        }
-      }
-      __syncthreads();
-    }
+    masked_strips(bk, order, start, end, out, bq, slots, L, l0, nrows);
     return;
   }
 
   const G g;
   const int kt = (d + G::BK - 1) / G::BK;
-  const int max_blocks = G::BM / bq;
   auto row_ptr = [&](int r) -> const float* { return rows[r]; };
 
   for (int cursor = start; cursor < end;) {
-    // 1. the next group: up to max_blocks distinct probing blocks
-    const int wn = min(kWindow, end - cursor);
-    if (tid < wn) swin[tid] = __ldg(order + cursor + tid);
-    __syncthreads();
-    if (tid == 0) {
-      int n = 0, last = -1, w = 0;
-      for (; w < wn; ++w) {
-        const int b = swin[w] / slots;
-        if (b != last) {
-          if (n == max_blocks) break;
-          gb[n] = b;
-          gfirst[n++] = w;
-          last = b;
-        }
-      }
-      gfirst[n] = w;
-      gmeta[0] = n;
-      gmeta[1] = w;
-    }
-    __syncthreads();
-    const int nq = gmeta[0] * bq;                    // live A rows
+    // 1. the next group: up to 64 / bq distinct probing blocks
+    const int nq = next_group(bk, order, cursor, end, slots, bq);
     if (tid < G::BM)
-      rows[tid] = tid < nq ? queries + (static_cast<long long>(gb[tid / bq]) * bq + tid % bq) * d
-                           : nullptr;
+      rows[tid] = tid < nq
+                      ? queries + (static_cast<long long>(bk.blk[tid / bq]) * bq + tid % bq) * d
+                      : nullptr;
     __syncthreads();
 
     // 2. the GEMM over d through the ring
@@ -158,61 +92,29 @@ cluster_scan_kernel(const float* __restrict__ queries, const float* __restrict__
     }
     cp_async_wait<0>();
     if (NORM) {
-      if (tid < G::BM) sinv[tid] = inv_norm(ss);
+      if (tid < G::BM) bk.inv[tid] = inv_norm(ss);
       __syncthreads();
     }
 
     // 3. each group row's strip, to every slot its block probed from
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int r = g.arow0 + i;
-      if (r >= nq) continue;
-      const int j = r / bq;
-      const float iq = NORM ? sinv[r] : 1.f;
-      const long long orow = (static_cast<long long>(gb[j]) * bq + r % bq) * ld + l0;
-      float v[TN];
-#pragma unroll
-      for (int e = 0; e < TN; ++e) {
-        const int l = g.col(e);
-        v[e] = l < nrows && smask[l] > 0.f ? acc[i][e] * iq : kMaskedScore;
-      }
-      for (int w = gfirst[j]; w < gfirst[j + 1]; ++w) {
-        float* dst = out + orow + static_cast<long long>(swin[w] % slots) * L;
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const int l = g.col(4 * jj);
-          if (vec_out) {
-            if (l < nrows)
-              __stcs(reinterpret_cast<float4*>(dst + l),
-                     make_float4(v[4 * jj], v[4 * jj + 1], v[4 * jj + 2], v[4 * jj + 3]));
-          } else {
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              if (l + e < nrows) __stcs(dst + l + e, v[4 * jj + e]);
-          }
-        }
-      }
-    }
-    cursor += gmeta[1];
-    __syncthreads();   // the ring, rows, swin and the group are reused next
+    write_strips<NORM, false>(g, bk, acc, nq, bq, out, slots, L, l0, nrows);
+    cursor += bk.used;
+    __syncthreads();   // the ring, rows and the group are reused next
   }
 }
 
 template <bool NORM>
 cudaError_t launch(const float* q, const float* store, const float* mask,
                    const int32_t* order, const int32_t* starts, float* out, int bq, int kc,
-                   int L, int d, int slots, int device, cudaStream_t stream) {
+                   int L, int d, int slots, unsigned grid, int nchunks, int device,
+                   cudaStream_t stream) {
   auto kern = cluster_scan_kernel<NORM>;
-  const size_t smem = (G::RING_FLOATS + G::BM + BN) * sizeof(float) +
-                      G::ROWS * sizeof(float*) + (kWindow + 2 * G::BM + 3) * sizeof(int);
+  const size_t smem = G::RING_FLOATS * sizeof(float) + G::ROWS * sizeof(float*) + sizeof(Book);
   static int resident[64] = {0};      // per device
   const cudaError_t e = prepare(kern, G::THREADS, smem, device, resident[device & 63]);
   if (e != cudaSuccess) return e;
-  const int nchunks = (L + BN - 1) / BN;
-  const long long grid = static_cast<long long>(kc + 1) * nchunks;
-  if (grid > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  kern<<<static_cast<unsigned>(grid), G::THREADS, smem, stream>>>(
-      q, store, mask, order, starts, out, bq, kc, L, d, slots, nchunks);
+  kern<<<grid, G::THREADS, smem, stream>>>(q, store, mask, order, starts, out, bq, kc, L, d,
+                                           slots, nchunks);
   return cudaGetLastError();
 }
 
@@ -232,10 +134,10 @@ int repro_cluster_scan(const void* queries, const void* store, const void* mask,
   cudaGetLastError();  // clear a stale error so the code returned is this launch's
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  if (nb <= 0 || slots <= 0 || L <= 0) return cudaSuccess;
-  if (bq <= 0 || bq > G::BM || G::BM % bq != 0 || d <= 0 || d > 0x7fffffffLL ||
-      kc >= 0x7fffffffLL || L > 0x7fffffffLL || nb * slots > 0x7fffffffLL)
-    return cudaErrorInvalidValue;
+  unsigned grid = 0;
+  int nchunks = 0;
+  e = plan_grid(nb, bq, kc, L, d, slots, &grid, &nchunks);
+  if (e != cudaSuccess || grid == 0) return e;
   const auto* qf = static_cast<const float*>(queries);
   const auto* st = static_cast<const float*>(store);
   const auto* mk = static_cast<const float*>(mask);
@@ -246,9 +148,9 @@ int repro_cluster_scan(const void* queries, const void* store, const void* mask,
   const int args[5] = {bq, static_cast<int>(kc), static_cast<int>(L), static_cast<int>(d),
                        static_cast<int>(slots)};
   return normalize ? launch<true>(qf, st, mk, od, sp, o, args[0], args[1], args[2], args[3],
-                                  args[4], device, s)
+                                  args[4], grid, nchunks, device, s)
                    : launch<false>(qf, st, mk, od, sp, o, args[0], args[1], args[2], args[3],
-                                   args[4], device, s);
+                                   args[4], grid, nchunks, device, s);
 }
 
 const char* repro_cuda_error_string(int code) {

@@ -1,6 +1,7 @@
-// The IEEE fp32 SIMT GEMM core shared by similarity.cu and ivf_scan.cu.
+// The IEEE fp32 SIMT GEMM core shared by similarity.cu, ivf_scan.cu and
+// ivf_scan_q.cu.
 //
-// Both kernels compute tiles of C[m, n] = sum_k A[m, k] * B[n, k], where A's
+// The kernels compute tiles of C[m, n] = sum_k A[m, k] * B[n, k], where A's
 // rows are query vectors and B's rows are corpus (or cluster-tile) vectors,
 // both with d contiguous.  Their contract is IEEE fp32 (the top-k ids must
 // match the reference), which rules out TF32 tensor cores, so the ceiling
@@ -18,7 +19,9 @@
 //   rows of BM + BN floats, the tile's A rows then its B rows at each k.
 //   The copies are 4 bytes each, which transposes on the way in and takes
 //   any d and any alignment; values outside the data are zero-filled by the
-//   copy (src-size 0) without a read;
+//   copy (src-size 0) without a read.  The int8 scan lands its rows
+//   m-major with 16-byte copies instead and converts them into k-major
+//   regions of its own, which the two-region mma_stage reads;
 // * a k row is padded by 4 floats (its length is 4 mod 32): the micro-tile's
 //   float4 loads and the row sums of squares read consecutive floats of one
 //   k row, and the copies (a warp writes 4 rows x 8 k) land in 32 different
@@ -43,10 +46,16 @@ constexpr int BN = 128;                  // B rows (corpus vectors) per tile
 constexpr int TM = 8, TN = 8;            // micro-tile
 constexpr int JSTRIDE = 64;              // column step between a lane's float4s
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(s), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+// 16 bytes, bypassing L1: src and dst 16-byte aligned
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(valid ? 16 : 0) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -112,14 +121,21 @@ struct Gemm {
   // acc[i][j] += A[arow0 + i] . B[col(j)] over one stage's BK columns, k
   // ascending.
   __device__ __forceinline__ void mma_stage(const float* st, float (&acc)[TM][TN]) const {
-    const float* pa = st + arow0;
-    const float* pb = st + BM + bcol0;
+    mma_stage<KROW, KROW>(st, st + BM, acc);
+  }
+
+  // The same with A's k rows KA floats apart from sa and B's KB apart from sb.
+  template <int KA, int KB>
+  __device__ __forceinline__ void mma_stage(const float* sa, const float* sb,
+                                            float (&acc)[TM][TN]) const {
+    const float* pa = sa + arow0;
+    const float* pb = sb + bcol0;
 #pragma unroll
     for (int k = 0; k < BK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(pa + k * KROW);
-      const float4 a1 = *reinterpret_cast<const float4*>(pa + k * KROW + 4);
-      const float4 b0 = *reinterpret_cast<const float4*>(pb + k * KROW);
-      const float4 b1 = *reinterpret_cast<const float4*>(pb + k * KROW + JSTRIDE);
+      const float4 a0 = *reinterpret_cast<const float4*>(pa + k * KA);
+      const float4 a1 = *reinterpret_cast<const float4*>(pa + k * KA + 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(pb + k * KB);
+      const float4 b1 = *reinterpret_cast<const float4*>(pb + k * KB + JSTRIDE);
       const float a[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
       const float b[TN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
@@ -129,12 +145,13 @@ struct Gemm {
     }
   }
 
-  // Sum of squares of tile row r's BK values in the stage, k ascending,
-  // added to ss.
+  // Sum of squares of tile row r's BK values in a stage whose k rows are KS
+  // floats apart, k ascending, added to ss.
+  template <int KS = KROW>
   static __device__ __forceinline__ float row_sumsq(const float* st, int r, float ss) {
 #pragma unroll
     for (int k = 0; k < BK; ++k) {
-      const float v = st[k * KROW + r];
+      const float v = st[k * KS + r];
       ss = fmaf(v, v, ss);
     }
     return ss;

@@ -53,8 +53,8 @@ def probe_lists(probe_blocks: torch.Tensor, kc: int) -> tuple[torch.Tensor, torc
 
 
 def check_scan_shapes(queries, store, mask, probe_blocks, block_q: int) -> None:
-    """Shape checks shared by both cluster scans (the int8 scan's launch
-    limits are ``ivf_scan_q.check_launch``)."""
+    """Shape checks shared by both cluster scans (their launch limits are
+    :func:`check_launch`)."""
     nq, d = queries.shape
     kc, L, ds = store.shape
     nb, _ = probe_blocks.shape
@@ -66,6 +66,23 @@ def check_scan_shapes(queries, store, mask, probe_blocks, block_q: int) -> None:
         raise ValueError("queries must be pre-padded to full blocks")
     if block_q not in BLOCK_Q:
         raise ValueError(f"block_q={block_q}: the kernels are built for {BLOCK_Q}")
+
+
+CHUNK = 128                          # rows of a cluster one CTA scans
+INT32_MAX = 2**31 - 1
+
+
+def check_launch(nb: int, slots: int, kc: int, L: int) -> None:
+    """The launch limits both cluster scans share (``csrc/cluster_major.cuh``,
+    ``plan_grid``): the probe lists hold the ``nb*slots`` (block, slot) pairs
+    as int32, and one CTA per (cluster, 128-row chunk), the ``kc + 1``
+    clusters including the bucket of ids outside the store, must fit one
+    launch's grid."""
+    if nb * slots > INT32_MAX:
+        raise ValueError(f"{nb} x {slots} probes exceed the int32 probe lists")
+    if (kc + 1) * -(-L // CHUNK) > INT32_MAX:
+        raise ValueError(f"{kc + 1} clusters x {-(-L // CHUNK)} chunks of {CHUNK} rows "
+                         "exceed one launch")
 
 
 def cluster_scan(queries: torch.Tensor, store: torch.Tensor, mask: torch.Tensor,
@@ -83,6 +100,7 @@ def cluster_scan(queries: torch.Tensor, store: torch.Tensor, mask: torch.Tensor,
     check_scan_shapes(queries, store, mask, probe_blocks, block_q)
     kc, L, d = store.shape
     nb, slots = probe_blocks.shape
+    check_launch(nb, slots, kc, L)
     out = torch.empty((nb * block_q, slots * L), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out

@@ -5,9 +5,11 @@ padded per-cluster tiles, the same probe selection and ``MASKED_SCORE``
 padding, but the tiles are symmetric per-vector int8 (``store_q [kc, L, d]``
 int8 + ``scales [kc, L]`` f32; ``repro_torch.index.quant``), cutting the
 bytes the hot loop streams per vector from ``4*d`` to ``d + 4``.  The CUDA
-kernel ``csrc/ivf_scan_q.cu`` upcasts the int8 tile in registers and
-multiplies each finished dot product by its vector's scale; the query is
-not quantized.
+kernel ``csrc/ivf_scan_q.cu`` runs the fp32 scan's cluster-major schedule
+from the same probe lists (``ivf_scan.probe_lists``): it stages each
+chunk's int8 rows in shared memory, converts them to fp32 once per stage,
+and multiplies each finished dot product by its vector's scale; the query
+is not quantized.
 
 :func:`cluster_scan_q` takes CUDA tensors only; its plain version is
 ``ref.ivf_scan_q_ref``, which ``ops`` runs for tensors on the CPU.  The recall
@@ -21,27 +23,28 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ivf_scan import check_scan_shapes
+from repro_torch.kernels.ivf_scan import (check_launch, check_scan_shapes,
+                                          probe_lists)
 from repro_torch.kernels.ref import (_sharded_scan, _unitize, ivf_probes,
                                      pad_queries)
 
 launches = 0   # kernel launches since the caller last set this to 0
 
-SMEM_LIMIT = 227 * 1024             # dynamic shared memory one CTA may hold
-
-_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int] + \
-    [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int] + \
+    [ctypes.c_longlong] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
-def check_launch(queries: torch.Tensor, probe_blocks: torch.Tensor, block_q: int) -> None:
-    """The launch limits of ``csrc/cluster_scan.cuh``: one CTA per (query
-    block, probe slot), the grid's rows are the blocks, and each CTA holds
-    its ``block_q x d`` query block in shared memory."""
-    d, nb = queries.shape[1], probe_blocks.shape[0]
-    if (block_q * d + 256) * 4 > SMEM_LIMIT:
-        raise ValueError(f"a {block_q}x{d} query block does not fit in shared memory")
-    if nb > 65535:
-        raise ValueError(f"{nb} query blocks exceed one launch (65535)")
+def aligned_rows(queries: torch.Tensor) -> torch.Tensor:
+    """``queries`` [n, d] as the kernel copies them, 16 bytes at a time:
+    itself when its rows are 16-byte aligned, else a copy whose rows are
+    padded with zeros to a multiple of 4 floats."""
+    d = queries.shape[1]
+    if d % 4 == 0 and queries.data_ptr() % 16 == 0:
+        return queries
+    out = torch.zeros((queries.shape[0], d + (-d) % 4), dtype=queries.dtype,
+                      device=queries.device)
+    out[:, :d] = queries
+    return out
 
 
 def cluster_scan_q(queries: torch.Tensor, store_q: torch.Tensor,
@@ -59,18 +62,20 @@ def cluster_scan_q(queries: torch.Tensor, store_q: torch.Tensor,
     _build.require(mask, "mask", torch.float32, 2, dev)
     _build.require(probe_blocks, "probe_blocks", torch.int32, 2, dev)
     check_scan_shapes(queries, store_q, mask, probe_blocks, block_q)
-    check_launch(queries, probe_blocks, block_q)
     if scales.shape != mask.shape:
         raise ValueError(f"scales shape {tuple(scales.shape)} != {tuple(mask.shape)}")
     kc, L, d = store_q.shape
     nb, slots = probe_blocks.shape
+    check_launch(nb, slots, kc, L)
     out = torch.empty((nb * block_q, slots * L), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
     fn = _build.function("ivf_scan_q", "repro_cluster_scan_q", _ARGS)
-    rc = fn(queries.data_ptr(), store_q.data_ptr(), scales.data_ptr(),
-            mask.data_ptr(), probe_blocks.data_ptr(), out.data_ptr(), nb,
-            block_q, kc, L, d, slots, int(normalize), dev.index,
+    order, starts = probe_lists(probe_blocks, kc)
+    qa = aligned_rows(queries)
+    rc = fn(qa.data_ptr(), store_q.data_ptr(), scales.data_ptr(),
+            mask.data_ptr(), order.data_ptr(), starts.data_ptr(), out.data_ptr(),
+            nb, block_q, kc, L, d, qa.shape[1], slots, int(normalize), dev.index,
             _build.stream_of(queries))
     _build.check(rc, "ivf_scan_q", "cluster_scan_q kernel")
     launches += 1

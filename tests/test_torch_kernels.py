@@ -183,10 +183,22 @@ def test_ivf_delta_search_ref_matches_jnp():
 
 @pytest.mark.parametrize("d", [17, 64, 384])
 @pytest.mark.parametrize("normalize", [True, False])
-def test_ivf_scan_q_ref_matches_jnp(d, normalize):
+@pytest.mark.parametrize("values", ["quantized", "extremes"])
+def test_ivf_scan_q_ref_matches_jnp(d, normalize, values):
     q, cents, store, mask, sq, sc = _ivf_world(6, 128, d, 16, seed=d + 11,
                                                quantized=True)
     pb = np.random.default_rng(d + 1).integers(0, 6, size=(2, 16)).astype(np.int32)
+    if values == "extremes":
+        # -128 and 127, a valid row of scale 0, masked rows of non-zero bytes
+        rng = np.random.default_rng(d + 2)
+        sq = rng.integers(-128, 128, size=sq.shape, dtype=np.int8)
+        sq[0, :40], sq[0, 40:80] = -128, 127
+        sq[1, 3, ::2], sq[1, 3, 1::2] = -128, 127
+        mask[0, :80] = mask[1, 3] = mask[2, 5] = 1.0
+        sc = (rng.random(sc.shape) / (127 * np.sqrt(d))).astype(np.float32)
+        sc[2, 5] = 0.0
+        pb[:, 0] = [0, 2]
+        pb[:, 1] = 1
     q = q if normalize else _unit(q)
     got = tref.ivf_scan_q_ref(_t(q), _t(sq), _t(sc), _t(mask), _t(pb),
                               normalize=normalize)
@@ -632,6 +644,20 @@ def test_impl_modes_and_device_switch():
             repro_torch.set_device("cpu")
 
 
+def test_aligned_rows_gives_the_int8_kernel_16_byte_rows():
+    """The int8 scan copies query rows 16 bytes at a time: aligned rows of a
+    multiple of 4 floats pass as they are, others are copied, zero-padded."""
+    q = torch.arange(24, dtype=torch.float32).reshape(3, 8)
+    assert tivfq.aligned_rows(q) is q
+    for view in (torch.arange(16, dtype=torch.float32)[1:].view(3, 5),
+                 torch.arange(25, dtype=torch.float32)[1:].view(3, 8)):
+        got = tivfq.aligned_rows(view)
+        d = view.shape[1]
+        assert got.shape == (3, d + (-d) % 4) and got.data_ptr() % 16 == 0
+        torch.testing.assert_close(got[:, :d], view, rtol=0, atol=0)
+        assert not got[:, d:].any()
+
+
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     """Shape and launch checks run before any CUDA call, so they show here."""
     q = torch.zeros((12, 8))
@@ -641,14 +667,19 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
         tivf.check_scan_shapes(q, store, mask, pb, 8)
     with pytest.raises(ValueError, match="built for"):
         tivf.check_scan_shapes(torch.zeros((6, 8)), store, mask, pb, 3)
-    # a 16 x 4096 query block: the fp32 scan streams d and takes it, the
-    # int8 scan holds the block in shared memory and refuses it
+    # a 16 x 4096 query block and 65536 blocks: both scans stream d through
+    # their rings and grid by cluster, so they take them
     wide_q, wide_pb = torch.zeros((32, 4096)), torch.zeros((2, 16), dtype=torch.int32)
     tivf.check_scan_shapes(wide_q, torch.zeros((3, 128, 4096)), mask, wide_pb, 16)
-    with pytest.raises(ValueError, match="shared memory"):
-        tivfq.check_launch(wide_q, wide_pb, 16)
+    tivfq.check_launch(2, 16, 3, 128)
+    tivfq.check_launch(65536, 8, 3, 128)
+    # the int8 scan's limits: int32 probe lists, one CTA per (cluster, 128-row
+    # chunk) in one launch, the bucket of ids outside the store included
+    tivfq.check_launch(65536, 32767, 2**24 - 2, 128 * 128)
+    with pytest.raises(ValueError, match="int32 probe lists"):
+        tivfq.check_launch(65536, 32768, 3, 128)
     with pytest.raises(ValueError, match="one launch"):
-        tivfq.check_launch(torch.zeros((65536, 8)), torch.zeros((65536, 8), dtype=torch.int32), 1)
+        tivfq.check_launch(1, 8, 2**24 - 1, 128 * 128 + 1)
     with pytest.raises(ValueError, match="CUDA tensor"):
         from repro_torch.kernels import _build
         _build.require(q, "queries", torch.float32, 2)

@@ -197,36 +197,103 @@ SCAN_PATTERNS = ["empty chunk", "duplicates in a block", "one cluster probed by 
                  "ids -1 and kc"]
 
 
+def _scan_planes(scan, q, store, mask, pb, bq, normalize):
+    """(kernel plane, plain plane) of the fp32 scan over ``store`` or of the
+    int8 scan over ``quantize_tiles(store)``, from numpy inputs.  The plain
+    versions take ids in [0, kc) only: an id outside scores MASKED_SCORE
+    over its whole strip, so those strips are masked in the plain plane."""
+    kc, L, _ = store.shape
+    bad = (pb < 0) | (pb >= kc)
+    good = np.where(bad, 0, pb)
+    q, mask, pb, good = (_t(a).cuda() for a in (q, mask, pb, good))
+    if scan == "fp32":
+        store = _t(store).cuda()
+        got = tivf.cluster_scan(q, store, mask, pb, block_q=bq, normalize=normalize)
+        want = tref.ivf_scan_ref(q, store, mask, good, block_q=bq, normalize=normalize)
+        again = tivf.cluster_scan(q, store, mask, pb, block_q=bq, normalize=normalize)
+    else:
+        sq, sc = (_t(a).cuda() for a in quantize_tiles(store))
+        got = tivfq.cluster_scan_q(q, sq, sc, mask, pb, block_q=bq, normalize=normalize)
+        want = tref.ivf_scan_q_ref(q, sq, sc, mask, good, block_q=bq, normalize=normalize)
+        again = tivfq.cluster_scan_q(q, sq, sc, mask, pb, block_q=bq, normalize=normalize)
+    strip = _t(bad).cuda().repeat_interleave(L, dim=1).repeat_interleave(bq, dim=0)
+    # two calls give the same bits
+    assert torch.equal(got, again)
+    return got, torch.where(strip, MASKED_SCORE, want)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("scan", ["fp32", "int8"])
 @pytest.mark.parametrize("pattern", SCAN_PATTERNS)
 @pytest.mark.parametrize("normalize", [True, False])
-def test_cluster_scan_probe_patterns_match_plain(cuda, pattern, normalize):
+def test_cluster_scan_probe_patterns_match_plain(cuda, scan, pattern, normalize):
     q, store, mask, pb, bq = _scan_case(pattern, np.random.default_rng(7))
     q = q if normalize else _unit(q)
-    q, store, mask, pb = (_t(a).to(cuda) for a in (q, store, mask, pb))
-    got = tivf.cluster_scan(q, store, mask, pb, block_q=bq, normalize=normalize)
-    # the plain version takes ids in [0, kc) only: an id outside scores
-    # MASKED_SCORE over its whole strip
-    bad = (pb < 0) | (pb >= store.shape[0])
-    want = tref.ivf_scan_ref(q, store, mask, torch.where(bad, 0, pb), block_q=bq,
-                             normalize=normalize)
-    strip = bad.repeat_interleave(store.shape[1], dim=1).repeat_interleave(bq, dim=0)
-    _assert_plane(got, torch.where(strip, MASKED_SCORE, want))
-    # two calls give the same bits
-    assert torch.equal(got, tivf.cluster_scan(q, store, mask, pb, block_q=bq,
-                                              normalize=normalize))
+    _assert_plane(*_scan_planes(scan, q, store, mask, pb, bq, normalize))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("scan", ["fp32", "int8"])
 @pytest.mark.parametrize("n_shards", [1, 3, 4])
-def test_sharded_cluster_scan_matches_plain(cuda, n_shards):
+def test_sharded_cluster_scan_matches_plain(cuda, scan, n_shards):
     """store[lo:hi] views through the sharded entry, L no multiple of 128."""
-    q, cents, store, mask, _, _ = _ivf_world(7, 300, 48, 21, seed=12)
-    q, cents, store, mask = (_t(a).to(cuda) for a in (q, cents, store, mask))
-    got = tivf.sharded_ivf_search(q, cents, store, mask, nprobe=3, n_shards=n_shards)
-    want = tref.sharded_ivf_search_ref(q, cents, store, mask, nprobe=3, n_shards=n_shards)
+    q, cents, store, mask, sq, sc = _ivf_world(7, 300, 48, 21, seed=12)
+    q, cents, store, mask, sq, sc = (_t(a).to(cuda) for a in (q, cents, store, mask, sq, sc))
+    if scan == "fp32":
+        got = tivf.sharded_ivf_search(q, cents, store, mask, nprobe=3, n_shards=n_shards)
+        want = tref.sharded_ivf_search_ref(q, cents, store, mask, nprobe=3, n_shards=n_shards)
+    else:
+        got = tivfq.sharded_ivf_search_q(q, cents, sq, sc, mask, nprobe=3, n_shards=n_shards)
+        want = tref.sharded_ivf_search_q_ref(q, cents, sq, sc, mask, nprobe=3,
+                                             n_shards=n_shards)
     _assert_plane(got[0], want[0])
     assert torch.equal(got[1], want[1])
+
+
+def _int8_edge_case(d, offset, rng):
+    """An int8 store that holds -128 and 127, a valid row whose scale is 0
+    and masked rows of non-zero bytes, as a view ``offset`` bytes past a
+    16-byte boundary: (store_q view, scales, mask, probe_blocks)."""
+    kc, L, nb, bq = 5, 300, 4, 8
+    sq = rng.integers(-128, 128, size=(kc, L, d), dtype=np.int8)
+    sq[0, :130] = -128                    # a whole chunk and more at each extreme
+    sq[0, 130:260] = 127
+    sq[1, 3, ::2], sq[1, 3, 1::2] = -128, 127
+    sc = (rng.random((kc, L)) / (127 * np.sqrt(d))).astype(np.float32)
+    mask = (rng.random((kc, L)) > 0.3).astype(np.float32)   # masked rows keep their bytes
+    mask[0, :260] = 1.0
+    mask[1, 3] = mask[2, 5] = 1.0
+    sc[2, 5] = 0.0
+    pb = rng.integers(0, kc, size=(nb, 2 * bq)).astype(np.int32)
+    pb[:, 0] = np.arange(nb) % 3
+    buf = torch.zeros(sq.size + 32, dtype=torch.int8, device="cuda")
+    at = (-buf.data_ptr()) % 16 + offset
+    view = buf[at:at + sq.size].view(sq.shape)
+    view.copy_(_t(sq).cuda())
+    assert view.data_ptr() % 16 == offset
+    return view, _t(sc).cuda(), _t(mask).cuda(), _t(pb).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [17, 33, 384, 1000])
+@pytest.mark.parametrize("offset", [0, 1, 4])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_cluster_scan_q_int8_edges_match_plain(cuda, d, offset, normalize):
+    """Every way the int8 rows reach shared memory: 16-byte copies (d % 16
+    == 0, aligned), 4-byte copies (d % 4 == 0, 4-byte aligned) and bytes;
+    query rows padded by the wrapper (d % 4 != 0) or, at offset 4, 4 bytes
+    past a 16-byte boundary."""
+    rng = np.random.default_rng(d + offset)
+    sq, sc, mask, pb = _int8_edge_case(d, offset, rng)
+    q = rng.normal(size=(pb.shape[0] * 8, d)).astype(np.float32)
+    q = _t(q if normalize else _unit(q)).cuda()
+    if offset == 4:
+        q = torch.cat([q.new_zeros(1), q.reshape(-1)])[1:].view(q.shape)
+        assert q.data_ptr() % 16 == 4
+    got = tivfq.cluster_scan_q(q, sq, sc, mask, pb, normalize=normalize)
+    want = tref.ivf_scan_q_ref(q, sq, sc, mask, pb, normalize=normalize)
+    _assert_plane(got, want)
+    assert bool((got[want == 0] == 0).all())   # the zero-scale row scores 0
 
 
 def _ops_run(device):

@@ -23,10 +23,13 @@ of that store, as ``IVFIndex(quantize="int8")`` makes them.  The probes are
 ``ivf_probes`` of the unitized, block-padded queries (32 blocks x 64 slots).
 ``similarity`` q [256,384] x c [1M,384] (and q [1,384], ``sem_search``'s
 shape) runs against ``F.normalize`` + ``matmul``; ``cluster_scan`` and
-``cluster_scan_q`` against one gathered ``einsum`` over the whole batch.
+``cluster_scan_q`` against one gathered ``einsum`` over the whole batch, and
+again at ``sem_search``'s shape (one query, padded to one block of 8 by
+edge replication as ``ivf_search`` pads it: probes [1, 64], 8 distinct
+clusters).
 Bounds: the larger of the bytes each input read once and each output
-written once (3.35 TB/s; for the scans, the valid rows of the distinct
-probed clusters, the mask, the queries, the probe ids and the output plane)
+written once (3.35 TB/s; for the scans, the valid rows and the mask of the
+distinct probed clusters, the queries, the probe ids and the output plane)
 and the fp32 SIMT operations (67 TFLOP/s; for the scans, the valid rows of
 each distinct (query block, cluster) pair against the block's 8 queries: a
 block that probed a cluster from several slots needs its scores once).
@@ -65,7 +68,8 @@ PEAK_FP32 = 67e12   # H100 SXM fp32 outside the tensor cores, FLOP/s (datasheet)
 GROUPS = {"retrieval": ("similarity", "ivf_scan", "ivf_scan_q"),
           "model": ("rmsnorm", "decode_attention")}
 MASKED_SCORE = -1e30
-RETRIEVAL = ("similarity", "similarity, one query", "cluster_scan", "cluster_scan_q")
+RETRIEVAL = ("similarity", "similarity, one query", "cluster_scan", "cluster_scan_q",
+             "cluster_scan, one query", "cluster_scan_q, one query")
 
 
 # A copy of chip_smoke.device_ms, not an import of it: chip_smoke puts the
@@ -119,6 +123,23 @@ def ivf_store(torch, c, q):
     return idx, qp, ref.ivf_probes(qp, idx._dev["centroids"], 8, 8)
 
 
+def issued_flops(torch, mask, pairs, dim: int, bq: int = 8) -> int:
+    """The FLOPs the cluster-major scans issue (``csrc/cluster_major.cuh``):
+    every 128-row chunk of a probed cluster that holds a valid row, against
+    each group (up to 64 / bq distinct probing blocks) in 16-row warp bands,
+    a band with one live row computed whole."""
+    chunk, band, rows = 128, 16, 64
+    kc, L = mask.shape
+    nch = -(-L // chunk)
+    m = torch.zeros(kc, nch * chunk, device=mask.device)
+    m[:, :L] = mask
+    live = (m.reshape(kc, nch, chunk) > 0).any(-1).sum(-1)
+    blocks = torch.bincount(pairs, minlength=kc)
+    per = rows // bq
+    bands = blocks // per * (rows // band) + (blocks % per * bq + band - 1) // band
+    return int(2 * dim * chunk * band * float((live * bands).sum()))
+
+
 def retrieval_rows(torch, seed: int) -> dict:
     """The three retrieval kernels on the smoke's data (module docstring)."""
     from repro_torch.index.quant import quantize_tiles
@@ -150,42 +171,52 @@ def retrieval_rows(torch, seed: int) -> dict:
     store, mask = idx._dev["store"], idx._dev["store_mask"]
     sq, ssc = (torch.from_numpy(a).cuda() for a in quantize_tiles(idx.store))
     kc, L, _ = store.shape
-    nb, slots = probes.shape
-    pl = probes.long()
     sizes = mask.sum(dim=1)
-    uniq = torch.unique(pl)
-    srt = pl.sort(dim=1).values                             # distinct (block, cluster) pairs
-    first = torch.ones_like(srt, dtype=torch.bool)
-    first[:, 1:] = srt[:, 1:] != srt[:, :-1]
-    pairs = srt[first]
-    flops = int(2 * dim * float(sizes[pairs].sum()) * 8)
-    qb = qp.reshape(nb, 8, dim)
-    for name, row_bytes, run, plain, lib in [
-            ("cluster_scan", 4 * dim,
-             lambda: kivf.cluster_scan(qp, store, mask, probes, normalize=False),
-             lambda: ref.ivf_scan_ref(qp, store, mask, probes, normalize=False),
-             lambda: torch.where(mask[pl][:, None] > 0,
-                                 torch.einsum("bqd,bsld->bqsl", qb, store[pl]), MASKED_SCORE)),
-            ("cluster_scan_q", dim + 4,
-             lambda: kivfq.cluster_scan_q(qp, sq, ssc, mask, probes, normalize=False),
-             lambda: ref.ivf_scan_q_ref(qp, sq, ssc, mask, probes, normalize=False),
-             lambda: torch.where(mask[pl][:, None] > 0,
-                                 torch.einsum("bqd,bsld->bqsl", qb, sq[pl].float())
-                                 * ssc[pl][:, None], MASKED_SCORE))]:
-        got, want = run(), plain()
-        masked = want <= MASKED_SCORE / 2
-        err = float((got[~masked] - want[~masked]).abs().max())
-        if not torch.equal(got[masked], want[masked]) or not torch.equal(got, run()):
-            err = float("inf")               # masked lanes differ, or two calls do
-        del got, want, masked
-        nbytes = int(sizes[uniq].sum()) * row_bytes + kc * L * 4 + qp.numel() * 4 \
-            + probes.numel() * 4 + qp.shape[0] * slots * L * 4
-        out[name] = dict(ms=device_ms(torch, run, 5), lib=device_ms(torch, lib, 3),
-                         nbytes=nbytes, flops=flops, err=err)
-        torch.cuda.empty_cache()
-    print(f"retrieval data: store [{kc}, {L}, {dim}], valid rows {int(sizes.sum())}, "
-          f"probes [{nb}, {slots}], distinct probed {len(uniq)}, distinct (block, cluster) "
-          f"pairs {len(pairs)}")
+    # sem_search's shape: one query, padded to one block as ivf_search pads it
+    qp1, _ = ref.pad_queries(q[:1], 8)
+    qp1 = ref._unitize(qp1)
+    probes1 = ref.ivf_probes(qp1, idx._dev["centroids"], 8, 8)
+    for suffix, qq, pb in (("", qp, probes), (", one query", qp1, probes1)):
+        nb, slots = pb.shape
+        pl = pb.long()
+        uniq = torch.unique(pl)
+        srt = pl.sort(dim=1).values                         # distinct (block, cluster) pairs
+        first = torch.ones_like(srt, dtype=torch.bool)
+        first[:, 1:] = srt[:, 1:] != srt[:, :-1]
+        pairs = srt[first]
+        flops = int(2 * dim * float(sizes[pairs].sum()) * 8)
+        qb = qq.reshape(nb, 8, dim)
+        for name, row_bytes, run, plain, lib in [
+                ("cluster_scan", 4 * dim,
+                 lambda: kivf.cluster_scan(qq, store, mask, pb, normalize=False),
+                 lambda: ref.ivf_scan_ref(qq, store, mask, pb, normalize=False),
+                 lambda: torch.where(mask[pl][:, None] > 0,
+                                     torch.einsum("bqd,bsld->bqsl", qb, store[pl]),
+                                     MASKED_SCORE)),
+                ("cluster_scan_q", dim + 4,
+                 lambda: kivfq.cluster_scan_q(qq, sq, ssc, mask, pb, normalize=False),
+                 lambda: ref.ivf_scan_q_ref(qq, sq, ssc, mask, pb, normalize=False),
+                 lambda: torch.where(mask[pl][:, None] > 0,
+                                     torch.einsum("bqd,bsld->bqsl", qb, sq[pl].float())
+                                     * ssc[pl][:, None], MASKED_SCORE))]:
+            got, want = run(), plain()
+            masked = want <= MASKED_SCORE / 2
+            err = float((got[~masked] - want[~masked]).abs().max())
+            if not torch.equal(got[masked], want[masked]) or not torch.equal(got, run()):
+                err = float("inf")           # masked lanes differ, or two calls do
+            del got, want, masked
+            # the probed clusters' valid rows and mask, the queries, the
+            # probe ids, the plane
+            nbytes = int(sizes[uniq].sum()) * row_bytes + len(uniq) * L * 4 \
+                + qq.numel() * 4 + pb.numel() * 4 + qq.shape[0] * slots * L * 4
+            out[name + suffix] = dict(ms=device_ms(torch, run, 5), lib=device_ms(torch, lib, 3),
+                                      nbytes=nbytes, flops=flops, err=err)
+            torch.cuda.empty_cache()
+        issued = issued_flops(torch, mask, pairs, dim)
+        print(f"retrieval data{suffix}: store [{kc}, {L}, {dim}], valid rows "
+              f"{int(sizes.sum())}, probes [{nb}, {slots}], distinct probed {len(uniq)}, "
+              f"distinct (block, cluster) pairs {len(pairs)}; the scans issue "
+              f"{issued / 1e9:.2f} GFLOP, {issued / flops:.4f} x the bound's {flops / 1e9:.2f}")
     return out
 
 
