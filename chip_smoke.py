@@ -37,9 +37,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 int8 within 0.01 of fp32), with the recall of other nprobe
                 values printed;
   6. small end to end — ``SimulatedEmbedder`` worlds through ``sem_index``
-                / ``sem_search`` / ``sem_sim_join`` / ``add()`` on the card,
-                checked against the same run on the CPU (the plain versions,
-                which the tests hold against the JAX reference);
+                / ``sem_search`` / ``sem_sim_join`` / ``add()``, and one lazy
+                ``SemFrame`` pipeline (filter -> join under rule 4's
+                prefilter -> pivot-guided topk), on the card, checked against
+                the same run on the CPU (the plain versions, which the tests
+                hold against the JAX reference) record for record and bill
+                for bill;
   7. oracle kernels — ``flash_attention`` and ``rmsnorm`` against their
                 plain versions at the oracle's shapes (q [32,512,24,128],
                 k/v [32,512,8,128] bf16 causal; x [32*512, 3072]) and at
@@ -101,7 +104,33 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 path meets and two gross faults exceed), f32 through 4
                 layers to 1e-4;
  13. paged decode — ``engine/paged.py`` against contiguous decode at full
-                width (8 rows, pages of 16), its kernel launches counted.
+                width (8 rows, pages of 16), its kernel launches counted;
+ 14. the SemFrame main path — benchmarks/pipeline_bench.py's pipeline
+                (filter broad 0.85 -> filter selective 0.15 -> gold join ->
+                topk 10) over the paper's BioDEX size, 250 articles x 24,000
+                reaction labels at width 384, launch counters set to 0:
+                eagerly and lazily with rule 4 off (records must be equal;
+                this check, which launches no kernel, joins the first 4,000
+                labels for the host's gold joins); the optimizer's default
+                plan (rule 4's prefilter through an exact index; its pairs
+                must be true pairs of the world) under the profiler (device
+                idle share); the pipeline with a cascade join under each
+                ``force_plan`` (sim-filter, project-sim-filter: the left x
+                right similarity plane and the projected plane); a lazy
+                ``sem_sim_join`` (k 10) whose index the plan picks under the
+                serving layer's ``index_shared``; and gold and cascade
+                ``sem_group_by`` over 10,000 topic records into 8 groups.
+                Each of these calls must have launched ``similarity``, or
+                the scan of the index the plan picked.  The gold calls run
+                again through the plain versions and must give the same
+                records (``sim_score`` within TOL), bills, details and plan
+                text.  The cascades read thresholds from quantile ranks of
+                their planes, which two fp32 planes agreeing to TOL order
+                otherwise among near-equal scores: each plane is held to the
+                plain version's within TOL (the scores ranked otherwise are
+                counted), and the cascades run through the plain versions on
+                the kernels' planes must give the same records, bills and
+                thresholds.
 
 The second-to-last line of output is ``{"kernels": [...]}``, whose
 ``clock`` says how ``ms`` and ``library_ms`` were timed ("profiler": device
@@ -116,6 +145,7 @@ import dataclasses
 import functools
 import gc
 import json
+import math
 import os
 import re
 import statistics
@@ -132,7 +162,12 @@ import repro_torch  # noqa: E402
 from repro_torch.common import flatten  # noqa: E402
 from repro_torch.configs import get_config, get_smoke  # noqa: E402
 from repro_torch.core.backends import synth  # noqa: E402
+from repro_torch.core.backends.simulated import (SimConfig,  # noqa: E402
+                                                 SimulatedEmbedder, SimulatedModel)
 from repro_torch.core.backends.torch_engine import EngineModel  # noqa: E402
+from repro_torch.core.frame import SemFrame, Session  # noqa: E402
+from repro_torch.core.operators import groupby as sf_groupby  # noqa: E402
+from repro_torch.core.operators import join as sf_join  # noqa: E402
 from repro_torch.core.operators.agg import sem_agg_hierarchical  # noqa: E402
 from repro_torch.core.operators.mapex import sem_map  # noqa: E402
 from repro_torch.core.operators.search import (sem_index, sem_search,  # noqa: E402
@@ -144,6 +179,8 @@ from repro_torch.engine import paged  # noqa: E402
 from repro_torch.engine.engine import InferenceEngine  # noqa: E402
 from repro_torch.engine.scheduler import ContinuousBatchScheduler  # noqa: E402
 from repro_torch.index.backend import MASKED_SCORE  # noqa: E402
+from repro_torch.index.quantile import quantile_calibrate  # noqa: E402
+from repro_torch.index.vector_index import VectorIndex  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as kda  # noqa: E402
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
@@ -805,6 +842,29 @@ def small_end_to_end() -> None:
         assert np.allclose(g[2], c[2], rtol=TOL, atol=TOL) and g[5] == c[5]
         assert np.array_equal(g[4], exact_full)   # nprobe=n_clusters == exact ids
     log(f"small end to end: cuda == cpu for exact/ivf/int8, launches {after}")
+
+    def lazy_run():
+        """A lazy SemFrame pipeline whose prefilter (rule 4, at a low
+        threshold) and pivot-guided top-k score through the exact index."""
+        left, right, world = biodex_world(300, 11)
+        slog: list = []
+        lz = (sf_frame(left[:60], world, slog).lazy().sem_filter(SF_BROAD)
+              .sem_join(right, SF_JOIN).sem_topk(SF_RANK, 5, pivot_query="highest accuracy"))
+        kw = {"prefilter_threshold": 1000}
+        return lz.collect(**kw).records, no_wall(slog), lz.explain(**kw)
+    before = retrieval_counts()
+    gpu = lazy_run()
+    n = retrieval_counts()["similarity"] - before["similarity"]
+    assert n > 0, n
+    repro_torch.set_device("cpu")
+    try:
+        cpu = lazy_run()
+    finally:
+        repro_torch.set_device(None)
+    assert gpu[0] == cpu[0] and gpu[1] == cpu[1] and gpu[2] == cpu[2]
+    log(f"small end to end: a lazy SemFrame pipeline (filter -> join with rule 4's "
+        f"prefilter -> pivot-guided topk) on the card == on the CPU: {len(gpu[0])} records, "
+        f"{bill(gpu[1])}, similarity launches {n}")
 
 
 def close_err(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
@@ -1711,6 +1771,334 @@ def paged_phase(gen: dict, seed: int) -> int:
     return launches
 
 
+# The SemFrame main path (phase 14): benchmarks/pipeline_bench.py:16-30's
+# pipeline and predicates over the paper's BioDEX size, 250 articles x 24,000
+# reaction labels (the 1,000x of benchmarks/table3_biodex.py:54-56), at the
+# E5-small width.
+SF_LEFT, SF_LABELS = 250, 24_000
+# The eager == lazy check (rule 4 off) runs the gold join twice on the host,
+# ~38 x labels prompts to the simulated oracle each and no kernel: it joins
+# the first SF_EQUALITY_LABELS labels, so that the phase stays well inside
+# its time.
+SF_EQUALITY_LABELS = 4_000
+SF_SELECTIVE = "the {abstract} names a checkable claim"
+SF_BROAD = "the {abstract} is written in English"
+SF_JOIN = "the {abstract} reports the {reaction:right}"
+SF_RANK = "the {abstract} reports the highest accuracy"
+SF_TOPICS = (10_000, 8)   # records, groups; benchmarks/fig8_groupby.py:9 has 400, 5
+# The cascades' targets.  At the BioDEX skew (2 true labels of 24,000 an
+# article) the stats' finite-sample guard certifies no threshold at recall
+# 0.9 from any sample the phase can afford, and the cascade then judges every
+# pair; at 0.5 over a 20,000-pair sample both plans learn a finite tau_minus
+# (and keep it under a 2e-7 perturbation of the planes), so the thresholds
+# read from the card's planes decide what the oracle sees.  The group-by's
+# accuracy target 0.8 sets its tau among the centre scores that tie at 1.0
+# (at 0.9 it is inf).
+SF_CASCADE = dict(recall_target=0.5, precision_target=0.5)
+SF_CASCADE_SAMPLE = 20_000
+SF_GROUP_ACCURACY = 0.8
+# Rule 4 (inject_sim_prefilter) narrows a gold join to each left row's most
+# similar quarter of the right rows, so by design it may drop true pairs
+# (tests/test_plan.py holds it to a subset of the gold join): the lazy run
+# that must equal the eager one switches it off.
+AS_WRITTEN = {"prefilter_threshold": math.inf}
+# The serving layer's setting: the retrieval cost model spreads an IVF build
+# over the index registry's sessions, so a plan picks IVF (int8 from 8192
+# rows) where one batch alone would not pay for the build.
+SHARED = {"index_shared": True}
+
+
+def biodex_world(n_labels: int, seed: int):
+    """pipeline_bench's world: two true labels an article, a broad (0.85) and
+    a selective (0.15) predicate, a rank value an article."""
+    left, right, world, *_ = synth.make_join_world(
+        SF_LEFT, n_labels, labels_per_left=2, seed=seed, cfg=SimConfig(dim=DIM))
+    synth.add_phrase_predicate(world, left, "names a checkable claim", 0.15, seed=seed)
+    synth.add_phrase_predicate(world, left, "is written in English", 0.85, seed=seed)
+    for i, t in enumerate(left):
+        world.rank_value[t["id"]] = float(i % 17) / 17.0
+    return left, right, world
+
+
+def sf_frame(records, world, stats_log: list, sample_size: int = 60) -> SemFrame:
+    return SemFrame(records, Session(oracle=SimulatedModel(world, "oracle"),
+                                     embedder=SimulatedEmbedder(world),
+                                     sample_size=sample_size), stats_log)
+
+
+def sf_pipeline(frame, labels):
+    """filter(broad) -> filter(selective) -> join -> topk, eager or lazy."""
+    return (frame.sem_filter(SF_BROAD).sem_filter(SF_SELECTIVE)
+            .sem_join(labels, SF_JOIN).sem_topk(SF_RANK, 10))
+
+
+def bill(stats_log: list) -> dict:
+    return {k: sum(st.get(k, 0) for st in stats_log)
+            for k in ("oracle_calls", "lm_calls", "cache_hits")}
+
+
+def no_wall(stats_log: list) -> list[dict]:
+    return [{k: v for k, v in st.items() if k != "wall_s"} for st in stats_log]
+
+
+def retrieval_counts() -> dict:
+    return {name: mod.launches for name, mod in _RETRIEVAL}
+
+
+def counted(fn):
+    """-> (fn(), wall s, retrieval kernel launches during the call)."""
+    c0 = retrieval_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, {n: c - c0[n] for n, c in retrieval_counts().items()}
+
+
+class Planes:
+    """Stands in for the cascade operators' ``VectorIndex``: records each
+    ``pairwise`` call's index rows, queries and score plane, or returns the
+    given planes, in order, in the plane's place."""
+
+    def __init__(self, replay=None):
+        self.calls: list[tuple[np.ndarray, np.ndarray, np.ndarray]] = []
+        calls, replay = self.calls, None if replay is None else list(replay)
+
+        class Index(VectorIndex):
+            def pairwise(self, queries):
+                if replay is None:
+                    out = super().pairwise(queries)
+                else:
+                    out = replay.pop(0)
+                    assert out.shape == (len(queries), len(self.vectors)), out.shape
+                calls.append((self.vectors, np.asarray(queries, np.float32), out))
+                return out
+        self.cls = Index
+
+    @contextlib.contextmanager
+    def installed(self):
+        saved = sf_join.VectorIndex, sf_groupby.VectorIndex
+        sf_join.VectorIndex = sf_groupby.VectorIndex = self.cls
+        try:
+            yield self
+        finally:
+            sf_join.VectorIndex, sf_groupby.VectorIndex = saved
+
+
+def record(out: dict, name: str, fn, text: str = "", planes: Planes | None = None) -> None:
+    """Run ``fn(stats_log)`` counted (under ``planes`` where given) into
+    ``out[name]``: records, stats log without wall times, plan text, wall s,
+    launches and the planes' calls."""
+    slog: list = []
+    with planes.installed() if planes else contextlib.nullcontext():
+        frame, wall, n = counted(lambda: fn(slog))
+    out[name] = dict(records=frame.records, log=no_wall(slog), text=text, wall=wall,
+                     launches=n, busy_ms=None, planes=planes.calls if planes else None)
+
+
+def cascade_runs(left, right, world, topics, replay: dict | None = None) -> dict:
+    """The pipeline with a cascade join under each ``force_plan`` (each
+    scores the left x right plane and the projected plane) and a cascade
+    ``sem_group_by`` (its centre plane), their planes recorded, or replaced
+    by ``replay[name]``'s."""
+    out: dict = {}
+    for plan in ("sim-filter", "project-sim-filter"):
+        name = f"cascade {plan}"
+        record(out, name, lambda slog: (
+            sf_frame(left, world, slog, SF_CASCADE_SAMPLE).sem_filter(SF_BROAD)
+            .sem_filter(SF_SELECTIVE).sem_join(right, SF_JOIN, force_plan=plan, **SF_CASCADE)),
+            planes=Planes(replay and [c[2] for c in replay[name]]))
+    recs, model, emb = topics
+    name = "cascade group_by"
+    record(out, name, lambda slog: SemFrame(recs, Session(oracle=model, embedder=emb), slog)
+           .sem_group_by("topic of {paper}", SF_TOPICS[1], accuracy_target=SF_GROUP_ACCURACY),
+           planes=Planes(replay and [c[2] for c in replay[name]]))
+    return out
+
+
+def semframe_device_runs(left, right, world, topics, profile: bool) -> dict:
+    """The phase's gold calls that reach the card: the optimizer's default
+    plan of the pipeline (rule 4's prefilter ranks each article's labels
+    through an exact index), a lazy ``sem_sim_join`` whose index the plan
+    picks, and gold ``sem_group_by`` (its centres scored through an exact
+    index).  With ``profile`` the default plan runs under the profiler.
+    -> per call: records, stats log without wall times, plan text, wall s,
+    launches."""
+    out: dict = {}
+    plog: list = []
+    lz = sf_pipeline(sf_frame(left, world, plog).lazy(), right)
+    text = lz.explain()
+    busy = None
+    if profile:
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            frame, wall, n = counted(lz.collect)
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    else:
+        frame, wall, n = counted(lz.collect)
+    out["pipeline"] = dict(records=frame.records, log=no_wall(plog), text=text, wall=wall,
+                           launches=n, busy_ms=busy, planes=None)
+
+    def sim_join(slog):
+        return sf_frame(left, world, slog).lazy().sem_sim_join(right, "abstract", "reaction", k=K)
+    record(out, "sim_join", lambda slog: sim_join(slog).collect(**SHARED),
+           sim_join([]).explain(**SHARED))
+    recs, model, emb = topics
+    record(out, "group_by", lambda slog: SemFrame(recs, Session(oracle=model, embedder=emb),
+                                                  slog).sem_group_by("topic of {paper}",
+                                                                     SF_TOPICS[1]))
+    return out
+
+
+def plane_changes(calls) -> str:
+    """Each recorded plane against the plain version's on the same index rows
+    and queries (within TOL); -> how many scores' quantile ranks differ, and
+    some of those scores (kernel, plain)."""
+    saved = ops.DEFAULT_IMPL
+    ops.DEFAULT_IMPL = "ref"
+    try:
+        said = []
+        for vectors, queries, got in calls:
+            want = VectorIndex(vectors).pairwise(queries)
+            err = float(np.abs(got - want).max())
+            assert got.shape == want.shape and err <= TOL, (got.shape, want.shape, err)
+            at = np.flatnonzero(quantile_calibrate(got).ravel()
+                                != quantile_calibrate(want).ravel())
+            said.append(f"plane {list(got.shape)}: max abs diff {err:.3g}, {len(at)} "
+                        f"scores ranked otherwise, e.g. "
+                        f"{[(float(got.flat[i]), float(want.flat[i])) for i in at[:3]]}")
+        return "; ".join(said)
+    finally:
+        ops.DEFAULT_IMPL = saved
+
+
+def same_records(got: list[dict], want: list[dict], what: str) -> None:
+    """Identical records, but ``sim_score`` within TOL."""
+    assert len(got) == len(want), f"{what}: {len(got)} records, plain path {len(want)}"
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys(), (what, g, w)
+        for key, v in g.items():
+            ok = abs(v - w[key]) <= TOL if key == "sim_score" else v == w[key]
+            assert ok, (what, key, g, w)
+
+
+def semframe_phase(args, smi: str) -> None:
+    """Phase 14, the SemFrame main path on the card: the pipeline eagerly and
+    lazily, then the calls that reach the card (the lazy default plan, the
+    cascade joins, a lazy ``sem_sim_join``, gold and cascade
+    ``sem_group_by``), counted; the gold calls again through the plain
+    versions, and the cascades through the plain versions on the kernels'
+    planes."""
+    t0 = time.perf_counter()
+    left, right, world = biodex_world(SF_LABELS, args.seed)
+    trecs, _, tmodel, temb = synth.make_topic_world(*SF_TOPICS, seed=args.seed)
+    log(f"semframe ({smi}): {SF_LEFT} articles x {SF_LABELS} labels at width {DIM}, and "
+        f"sem_group_by over make_topic_world({SF_TOPICS[0]}, {SF_TOPICS[1]}) (scaled up from "
+        f"fig8_groupby's 400 records, 5 groups; its width stays make_topic_world's "
+        f"{temb.dim}); worlds made in {time.perf_counter() - t0:.2f} s")
+    log(f"cut: the eager == lazy check joins the first {SF_EQUALITY_LABELS} of the "
+        f"{SF_LABELS} labels (two gold joins on the host, no kernel)")
+    for _, mod in _KERNELS:
+        mod.launches = 0
+
+    labels = right[:SF_EQUALITY_LABELS]
+    elog: list = []
+    def eager_run():
+        joined = (sf_frame(left, world, elog).sem_filter(SF_BROAD).sem_filter(SF_SELECTIVE)
+                  .sem_join(labels, SF_JOIN))
+        return joined, joined.sem_topk(SF_RANK, 10)
+    (joined, eager), e_wall, e_n = counted(eager_run)
+    alog: list = []
+    lz = sf_pipeline(sf_frame(left, world, alog).lazy(), labels)
+    a_text = lz.explain(**AS_WRITTEN)
+    lazy, a_wall, a_n = counted(lambda: lz.collect(**AS_WRITTEN))
+    log(f"semframe pipeline, lazy plan with rule 4 off:\n{a_text}")
+    log(f"semframe pipeline eager ({SF_EQUALITY_LABELS} labels): {e_wall:.2f} s, "
+        f"{len(joined)} joined pairs, {len(eager)} records, {bill(elog)}, launches {e_n}")
+    log(f"semframe pipeline lazy (rule 4 off, {SF_EQUALITY_LABELS} labels): {a_wall:.2f} s, "
+        f"{len(lazy)} records, {bill(alog)}, launches {a_n}")
+    assert lazy.records == eager.records, "lazy records differ from eager"
+    assert len(eager) == 10, len(eager)
+
+    topics = (trecs, tmodel, temb)
+    kern = semframe_device_runs(left, right, world, topics, profile=True)
+    kern.update(cascade_runs(left, right, world, topics))
+    launches = retrieval_counts()
+    pipe = kern["pipeline"]
+    log(f"semframe pipeline, lazy default plan:\n{pipe['text']}")
+    assert all(world.join_truth.get((t["id"], t["right_id"])) for t in pipe["records"]), \
+        "the default plan joined a pair that is not a true pair"
+    join_st = next(st for st in pipe["log"] if st["operator"] == "sem_join_prefiltered")
+    wall_ms = pipe["wall"] * 1e3
+    idle = (f"device busy {pipe['busy_ms']:.2f} ms, idle share "
+            f"{1 - pipe['busy_ms'] / wall_ms:.4f}") if pipe["busy_ms"] else \
+        "the profiler recorded no device time (idle share not measured)"
+    log(f"semframe pipeline lazy default plan (profiled): {pipe['wall']:.2f} s, "
+        f"{len(pipe['records'])} records, {bill(pipe['log'])}, prefilter index "
+        f"{join_st['index']}, k {join_st['prefilter_k']}, candidate pairs "
+        f"{join_st['candidate_pairs']}, launches {pipe['launches']}; {idle}")
+    for plan in ("sim-filter", "project-sim-filter"):
+        c = kern[f"cascade {plan}"]
+        st = c["log"][-1]
+        assert st["operator"] == "sem_join" and st["plan"] == plan, st
+        if st["tau_plus"] == math.inf:   # every kept pair was judged by the oracle
+            assert all(world.join_truth.get((t["id"], t["right_id"])) for t in c["records"]), \
+                f"cascade {plan} kept a pair that is not true"
+        log(f"semframe cascade join {plan} ({SF_CASCADE}, sample {SF_CASCADE_SAMPLE}): "
+            f"{c['wall']:.2f} s, {len(c['records'])} records, {bill(c['log'])}, tau_plus "
+            f"{st['tau_plus']}, tau_minus {st['tau_minus']}, oracle region "
+            f"{st['oracle_region']}, plan costs {st['plan_costs']}, launches {c['launches']}")
+    sj = kern["sim_join"]
+    sj_st = next(st for st in sj["log"] if st["operator"] == "sem_sim_join")
+    log(f"semframe sem_sim_join lazy:\n{sj['text']}")
+    log(f"semframe sem_sim_join: {sj['wall']:.2f} s, {len(sj['records'])} records, index "
+        f"{sj_st['index']} quantize {sj_st.get('quantize')}, scored_vectors "
+        f"{sj_st['scored_vectors']}, probed {sj_st['probed_clusters']}, scanned_bytes "
+        f"{sj_st.get('scanned_bytes')}, launches {sj['launches']}")
+    for name, op in (("group_by", "sem_group_by_gold"), ("cascade group_by", "sem_group_by")):
+        gb = kern[name]
+        st = gb["log"][-1]
+        assert len(gb["records"]) == SF_TOPICS[0] and st["operator"] == op, st
+        log(f"semframe {op}: {gb['wall']:.2f} s, {len(gb['records'])} records, "
+            f"{len({t['group_label'] for t in gb['records']})} groups, {bill(gb['log'])}, "
+            f"tau {st.get('tau')}, launches {gb['launches']}")
+    log(f"semframe launches over the phase's kernel path: {launches}")
+    chosen = {"exact": "similarity", "ivf": "cluster_scan"}[sj_st["index"]]
+    if sj_st.get("quantize") == "int8":
+        chosen = "cluster_scan_q"
+    for name, k in kern.items():
+        want = chosen if name == "sim_join" else "similarity"
+        assert k["launches"][want] > 0, (name, want, k["launches"])
+
+    # The gold calls through the plain versions must give the same records;
+    # the cascades read thresholds from quantile ranks of their planes, and
+    # two fp32 planes that agree to TOL rank near-equal scores otherwise, so
+    # they run through the plain versions on the kernels' planes, which are
+    # held to the plain versions' planes.
+    saved = ops.DEFAULT_IMPL
+    ops.DEFAULT_IMPL = "ref"
+    try:
+        before = retrieval_counts()
+        plain = semframe_device_runs(left, right, world, topics, profile=False)
+        plain.update(cascade_runs(left, right, world, topics,
+                                  replay={n: k["planes"] for n, k in kern.items()
+                                          if n.startswith("cascade")}))
+        assert retrieval_counts() == before, "a kernel launched on the plain path"
+    finally:
+        ops.DEFAULT_IMPL = saved
+    for name, k in kern.items():
+        p = plain[name]
+        same_records(k["records"], p["records"], name)
+        assert k["log"] == p["log"], f"{name}: stats differ from the plain path's"
+        assert k["text"] == p["text"], f"{name}: plan text differs from the plain path's"
+        how = "on the kernels' planes; " + plane_changes(k["planes"]) if k["planes"] else ""
+        log(f"semframe {name}: kernel path == plain path on the card (records, "
+            f"{len(k['log'])} stats entries incl. bills and thresholds, plan text{how and '; '}"
+            f"{how}), plain wall {p['wall']:.2f} s")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -1840,6 +2228,10 @@ def main() -> None:
     del gen
     torch.cuda.empty_cache()
     lap("13 paged decode")
+
+    # 14. the SemFrame main path: plan, optimizer and operators over the kernels
+    semframe_phase(args, smi)
+    lap("14 semframe")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"device: {smi}")

@@ -30,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _functions: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+_count_lock = threading.Lock()
 
 
 class KernelError(Exception):
@@ -140,6 +141,15 @@ def require(t, what: str, dtype, ndim: int, device=None) -> None:
         raise ValueError(f"{what} must have rank {ndim}, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{what} must be contiguous")
+
+
+def count_launch(namespace: dict) -> None:
+    """Add one to a kernel module's ``launches`` (``namespace`` is its
+    ``globals()``), under one lock: the plan executor calls the ops entries
+    from several fragment threads at once, and a bare ``launches += 1`` can
+    lose a count between its read and its write."""
+    with _count_lock:
+        namespace["launches"] += 1
 
 
 def stream_of(t) -> int:

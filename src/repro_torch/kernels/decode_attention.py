@@ -97,7 +97,6 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lens: torch.Tensor, *, window: int = 0) -> torch.Tensor:
     """q [B,1,H,hd], k/v [B,S,Hk,hd] (f32 or bf16, one type), lens [B]
     int32 -> [B,1,H,hd] in that type."""
-    global launches
     _build.require(q, "q", tuple(DTYPES), 4)
     _build.require(k, "k", q.dtype, 4, q.device)
     _build.require(v, "v", q.dtype, 4, q.device)
@@ -124,5 +123,5 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             None if tickets is None else tickets.data_ptr(), DTYPES[q.dtype], b, s, h,
             hk, hd, attn_scale(hd), int(window), chunk, int(vec), q.device.index, stream)
     _build.check(rc, "decode_attention", "decode_attention kernel")
-    launches += 1
+    _build.count_launch(globals())
     return out

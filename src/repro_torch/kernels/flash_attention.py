@@ -51,7 +51,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q [B,Sq,H,hd], k/v [B,Sk,Hk,hd] (f32 or bf16, one type) ->
     [B,Sq,H,hd] in that type."""
-    global launches
     _build.require(q, "q", tuple(DTYPES), 4)
     _build.require(k, "k", q.dtype, 4, q.device)
     _build.require(v, "v", q.dtype, 4, q.device)
@@ -66,5 +65,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             b, sq, sk, h, hk, hd, attn_scale(hd), int(causal), int(window),
             q.device.index, _build.stream_of(q))
     _build.check(rc, "flash_attention", "flash_attention kernel")
-    launches += 1
+    _build.count_launch(globals())
     return out

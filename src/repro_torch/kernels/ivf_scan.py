@@ -91,7 +91,6 @@ def cluster_scan(queries: torch.Tensor, store: torch.Tensor, mask: torch.Tensor,
     """queries [nb*bq, d] f32, store [kc, L, d] f32, mask [kc, L] f32,
     probe_blocks [nb, slots] int32 -> scores [nb*bq, slots*L] f32
     (padding lanes = MASKED_SCORE)."""
-    global launches
     dev = queries.device
     _build.require(queries, "queries", torch.float32, 2)
     _build.require(store, "store", torch.float32, 3, dev)
@@ -110,7 +109,7 @@ def cluster_scan(queries: torch.Tensor, store: torch.Tensor, mask: torch.Tensor,
             order.data_ptr(), starts.data_ptr(), out.data_ptr(), nb, block_q, kc,
             L, d, slots, int(normalize), dev.index, _build.stream_of(queries))
     _build.check(rc, "ivf_scan", "cluster_scan kernel")
-    launches += 1
+    _build.count_launch(globals())
     return out
 
 

@@ -54,7 +54,6 @@ def cluster_scan_q(queries: torch.Tensor, store_q: torch.Tensor,
     """queries [nb*bq, d] f32, store_q [kc, L, d] int8, scales [kc, L] f32,
     mask [kc, L] f32, probe_blocks [nb, slots] int32 -> scores
     [nb*bq, slots*L] f32 (padding lanes = MASKED_SCORE)."""
-    global launches
     dev = queries.device
     _build.require(queries, "queries", torch.float32, 2)
     _build.require(store_q, "store_q", torch.int8, 3, dev)
@@ -78,7 +77,7 @@ def cluster_scan_q(queries: torch.Tensor, store_q: torch.Tensor,
             nb, block_q, kc, L, d, qa.shape[1], slots, int(normalize), dev.index,
             _build.stream_of(queries))
     _build.check(rc, "ivf_scan_q", "cluster_scan_q kernel")
-    launches += 1
+    _build.count_launch(globals())
     return out
 
 

@@ -26,7 +26,6 @@ _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longl
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
     """x [..., d] (f32 or bf16), scale [d] f32 -> like ``x``."""
-    global launches
     if not isinstance(x, torch.Tensor) or x.dim() == 0:
         raise ValueError("x must be a tensor of rank >= 1")
     _build.require(x, "x", tuple(DTYPES), x.dim())
@@ -41,5 +40,5 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5) -> torch
     rc = fn(x.data_ptr(), scale.data_ptr(), out.data_ptr(), DTYPES[x.dtype],
             x.numel() // d, d, eps, x.device.index, _build.stream_of(x))
     _build.check(rc, "rmsnorm", "rmsnorm kernel")
-    launches += 1
+    _build.count_launch(globals())
     return out

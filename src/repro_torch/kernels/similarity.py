@@ -28,7 +28,6 @@ _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + \
 def similarity(queries: torch.Tensor, corpus: torch.Tensor, *,
                normalize: bool = True) -> torch.Tensor:
     """queries [nq, d] f32, corpus [nc, d] f32 -> [nq, nc] f32 scores."""
-    global launches
     _build.require(queries, "queries", torch.float32, 2)
     _build.require(corpus, "corpus", torch.float32, 2, queries.device)
     nq, d = queries.shape
@@ -44,7 +43,7 @@ def similarity(queries: torch.Tensor, corpus: torch.Tensor, *,
     rc = fn(queries.data_ptr(), corpus.data_ptr(), out.data_ptr(), nq, nc, d,
             int(normalize), queries.device.index, _build.stream_of(queries))
     _build.check(rc, "similarity", "similarity kernel")
-    launches += 1
+    _build.count_launch(globals())
     return out
 
 

@@ -1,7 +1,7 @@
-"""Observability for the semantic-operator stack: span tracing, the
-cross-session observed-statistics store and the online guarantee auditor.
-``explain_analyze`` and the Prometheus ``MetricsRegistry`` of ``repro.obs``
-arrive with the plan layer."""
+"""Observability for the semantic-operator stack: span tracing, EXPLAIN
+ANALYZE, the cross-session observed-statistics store and the online
+guarantee auditor.  The Prometheus ``MetricsRegistry`` of ``repro.obs``
+arrives with the serving layer."""
 from repro_torch.obs.stats_store import (ObservedStats, StatsStore,  # noqa: F401
                                          node_fingerprint, predicate_fingerprint)
 from repro_torch.obs.trace import (NOOP_SPAN, Span, Tracer, activate,  # noqa: F401
@@ -12,7 +12,7 @@ __all__ = [
     "Tracer", "Span", "NOOP_SPAN", "span", "span_in", "activate",
     "activate_ctx", "capture", "current_span", "current_tracer",
     "StatsStore", "ObservedStats", "predicate_fingerprint",
-    "node_fingerprint",
+    "node_fingerprint", "explain_analyze", "ExplainAnalyzeReport",
     "GuaranteeAuditor", "AuditPolicy", "AuditBudgeter", "ViolationEvent",
     "wilson_interval", "clopper_pearson", "binomial_interval",
 ]
@@ -24,6 +24,11 @@ _AUDIT_NAMES = frozenset({
 
 
 def __getattr__(name):
+    # explain_analyze pulls in the plan executor; import lazily so
+    # core modules can import repro_torch.obs without a cycle
+    if name in ("explain_analyze", "ExplainAnalyzeReport"):
+        from repro_torch.obs import analyze
+        return getattr(analyze, name)
     # audit pulls in accounting/backends lazily; it stays lazy here so
     # `import repro_torch.obs` keeps no heavy edges
     if name in _AUDIT_NAMES:

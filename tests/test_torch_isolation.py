@@ -1,9 +1,10 @@
 """The port stands alone: no module of ``repro_torch`` and not
 ``chip_smoke.py`` imports ``jax`` or the ``repro`` package, so the port runs
 on a machine that has neither.  The guarded run imports every module of the
-port and drives retrieval, the LLM oracle (predicate, LLM rerank) and the
+port and drives retrieval, the LLM oracle (predicate, LLM rerank), the
 generate path (``EngineModel.generate``, ``sem_map``, ``sem_agg``, a paged
-decode step) on the CPU."""
+decode step) and a lazy ``SemFrame`` pipeline through the plan layer
+(filter -> join -> topk, optimized and collected) on the CPU."""
 import os
 import re
 import subprocess
@@ -71,6 +72,16 @@ _GUARDED = textwrap.dedent("""
                                         paged.init_pages(cfg, 4, 4), alloc.table,
                                         np.zeros(1))
     assert logits.shape == (1, 1, cfg.vocab_size), logits.shape
+    from repro_torch.core.frame import SemFrame, Session
+    left, right, world, oracle, _, emb = synth.make_join_world(30, 12, seed=4)
+    synth.add_phrase_predicate(world, left, "is checkable", 0.5, seed=4)
+    lz = (SemFrame(left, Session(oracle=oracle, embedder=emb, sample_size=20)).lazy()
+          .sem_filter("the {abstract} is checkable")
+          .sem_join(right, "the {abstract} reports the {reaction:right}")
+          .sem_topk("the {abstract} reports the highest accuracy", 3))
+    plan = lz.explain(prefilter_threshold=100)
+    rows = lz.collect(prefilter_threshold=100).records
+    assert "inject_sim_prefilter" in plan and 0 < len(rows) <= 3, (plan, rows)
     assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro") for m in sys.modules)
     print("modules", len(names))
 """)
@@ -82,7 +93,7 @@ def test_port_imports_and_runs_with_jax_and_repro_refused():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
     n = int(out.stdout.split("modules")[-1])
-    assert n >= 57          # every module of slices 1, 2a and 2b was imported
+    assert n >= 72          # every module of slices 1, 2a, 2b and the plan layer
 
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|repro)(?:[.\s,]|$)", re.M)

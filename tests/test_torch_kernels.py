@@ -12,6 +12,10 @@ ones).  Attention: 1e-5 in f32 and 2e-2 in bf16, where the Pallas kernel
 rounds its unnormalised probabilities to bf16 and the contract its
 normalised ones.  RMSNorm: 1e-6 in f32 and one bf16 unit in the last place
 in bf16."""
+import sys
+import threading
+from concurrent.futures import ThreadPoolExecutor
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +26,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.index.backend import MASKED_SCORE
 from repro_torch.index.quant import quantize_tiles
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ivf_scan as tivf
 from repro_torch.kernels import ivf_scan_q as tivfq
@@ -694,3 +699,55 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
         tfa.check_shapes(qa, ka[:, :0], ka[:, :0], 0)
     with pytest.raises(ValueError, match="do not fit"):
         tfa.check_shapes(qa, torch.zeros((2, 5, 2, 16)), torch.zeros((2, 5, 2, 16)), 0)
+
+
+@pytest.mark.parametrize("entry", ["similarity", "rmsnorm"])
+def test_launch_counts_survive_concurrent_ops_calls(entry, monkeypatch):
+    """The plan executor calls the ops entries from several fragment threads
+    at once: no launch count may be lost between a read and a write.  The
+    kernel library is a stub that reports success and ops takes the kernel
+    route for CPU tensors, so the wrappers' own counting runs here; 8
+    threads x 100 calls under a 1 us switch interval.  CPython 3.12 checks
+    for a thread switch at no instruction between a bare ``+=``'s load and
+    store, so the count alone would pass without the lock there (not in a
+    free-threaded build): the test also requires every count to be taken
+    under ``_build``'s lock."""
+
+    class Lock:
+        def __init__(self):
+            self.lock, self.taken = threading.Lock(), 0
+
+        def __enter__(self):
+            self.lock.acquire()
+            self.taken += 1
+
+        def __exit__(self, *exc):
+            self.lock.release()
+    lock = Lock()
+    monkeypatch.setattr(_build, "_count_lock", lock)
+    monkeypatch.setattr(tops, "_resolve", lambda impl, t: "cuda")
+    monkeypatch.setattr(_build, "require", lambda *a, **k: None)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(_build, "function", lambda *a: (lambda *args: 0))
+    mod = {"similarity": tsim, "rmsnorm": trn}[entry]
+    monkeypatch.setattr(mod, "launches", 0)
+    q = np.ones((2, 8), np.float32)
+    call = {"similarity": lambda: tops.similarity(q, q),
+            "rmsnorm": lambda: tops.rmsnorm(_t(q), torch.ones(8))}[entry]
+    threads, calls = 8, 100
+    start = threading.Barrier(threads)
+
+    def work():
+        start.wait(timeout=30)
+        for _ in range(calls):
+            call()
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with ThreadPoolExecutor(threads) as pool:
+            futures = [pool.submit(work) for _ in range(threads)]
+            for f in futures:
+                f.result(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert mod.launches == lock.taken == threads * calls
