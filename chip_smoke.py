@@ -51,7 +51,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 prefill, H/Hk 8, rows no key may see, misaligned rows; for
                 rmsnorm, one row, rows no multiple of the persistent blocks'
                 share, d 8192 in registers, d 16384, odd and misaligned rows
-                in the fallback); the bf16 kernel's SASS must hold
+                in the fallback), and ``flash_attention`` at the E5
+                embedder's shape (q/k/v [64,256,12,32] f32, non-causal: the
+                SIMT kernel), also timed beside SDPA and its bound (printed
+                only; the kernel's row stays the oracle's bf16 shape); the
+                bf16 kernel's SASS must hold
                 tensor-core instructions; timed by profiler device time
                 beside the bound (GB/s and its share) and SDPA / F.rms_norm,
                 kernel and library call in turn over ROUNDS rounds, with the
@@ -131,8 +135,48 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 counted), and the cascades run through the plain versions on
                 the kernels' planes must give the same records, bills and
                 thresholds.
+ 15. serving at full width — ``make_session`` builds the oracle
+                (llama3.2-3b at its published widths, vocab cut to 384 as in
+                phases 8 and 11) and a proxy of the same widths cut to 4
+                layers; the embedder is E5_SMALL at its published widths (12
+                layers, d 384, 12 heads, ff 1536, f32; it replaces
+                make_session's 2-layer default).  ``Gateway(max_inflight=4)``
+                serves 8 sessions over 2 tenants, launch counters set to 0,
+                under the profiler: 4 run launch/serve.py's engine pipeline
+                (sem_map -> sem_filter) over 64 records of 300-480 bytes, two
+                pairs sharing their records; 4 run a lazy ``sem_search`` (k
+                10, exact: ``similarity``) over 20,000 passages that E5-small
+                embeds once through the IndexRegistry.  Every session must
+                end done, no generate request failed or retried, the index
+                built once and hit by the others, every prompt and text reach
+                its model exactly once (backend prompts = unique prompts),
+                sessions that share a pipeline return identical records, and
+                ``flash_attention`` must have launched 12 times an embedder
+                batch (f32 non-causal) and 28 times an oracle prefill or
+                scoring forward (bf16 causal), ``decode_attention`` 28 times a
+                decode step.  Sessions/s, p50/p95 latency, fusion, cache and
+                the device idle share are printed.  The embedder's kernel
+                path against its plain path (``attn_impl="full"``) on the
+                card: embeddings within EMB_TOL, the searches' top-10 ids
+                equal up to near-ties;
+ 16. a continuous query and the CLI — a ``CorpusTable`` of 200,000 rows
+                of phase 2's mixture gets four commits of 5,000 appended rows (a spill of 0.10: no
+                retrain); ``Gateway.subscribe`` runs a lazy ``sem_sim_join``
+                (k 10, fp32 IVF) of 256 queries over it, which reaches
+                ``cluster_scan`` and, for the delta buffer, ``similarity``.
+                One build and four delta updates in the registry, only the
+                delta rows embedded after the first emission, recall@10 of
+                each emission against an exact search over its version's
+                snapshot >= 0.90, and the index's kernel path equal to its
+                plain path (top-10 ids, up to near-ties).  Then
+                ``python -m repro_torch.launch.serve`` as subprocesses on
+                the card: the simulated backend (8 sessions, 2 tenants, 400
+                records, ``--audit``, a metrics dump that must parse) and the
+                engine backend (4 sessions at make_session's defaults); each
+                must print every session done.
 
-The second-to-last line of output is ``{"kernels": [...]}``, whose
+Phases 15 and 16's launch counts are printed on a line of their own,
+``serving launches {...}``.  The second-to-last line of output is ``{"kernels": [...]}``, whose
 ``clock`` says how ``ms`` and ``library_ms`` were timed ("profiler": device
 time; "events": CUDA events, host launch gaps included) and ``plain_clock``
 the same of ``plain_ms``; the last is ``{"ok": true, "device": {...}}``.
@@ -164,7 +208,8 @@ from repro_torch.configs import get_config, get_smoke  # noqa: E402
 from repro_torch.core.backends import synth  # noqa: E402
 from repro_torch.core.backends.simulated import (SimConfig,  # noqa: E402
                                                  SimulatedEmbedder, SimulatedModel)
-from repro_torch.core.backends.torch_engine import EngineModel  # noqa: E402
+from repro_torch.core.backends.testing import CountingBackend  # noqa: E402
+from repro_torch.core.backends.torch_engine import EngineModel, make_session  # noqa: E402
 from repro_torch.core.frame import SemFrame, Session  # noqa: E402
 from repro_torch.core.operators import groupby as sf_groupby  # noqa: E402
 from repro_torch.core.operators import join as sf_join  # noqa: E402
@@ -174,6 +219,7 @@ from repro_torch.core.operators.search import (sem_index, sem_search,  # noqa: E
                                                sem_sim_join)
 from repro_torch.core.operators.topk import compare_prompt  # noqa: E402
 from repro_torch.data.tokenizer import TOKENIZER  # noqa: E402
+from repro_torch.embed.encoder import E5_SMALL, Embedder  # noqa: E402
 from repro_torch.engine import engine as engine_mod  # noqa: E402
 from repro_torch.engine import paged  # noqa: E402
 from repro_torch.engine.engine import InferenceEngine  # noqa: E402
@@ -189,9 +235,13 @@ from repro_torch.kernels import ivf_scan_q as kivfq  # noqa: E402
 from repro_torch.kernels import rmsnorm as krn  # noqa: E402
 from repro_torch.kernels import similarity as ksim  # noqa: E402
 from repro_torch.models import attention, layers, registry  # noqa: E402
-from repro_torch.obs import trace  # noqa: E402
+from repro_torch.obs import parse_exposition, trace  # noqa: E402
+from repro_torch.serve import Gateway  # noqa: E402
+from repro_torch.stream import CorpusTable  # noqa: E402
 
-DIM = 384              # E5_SMALL's width (src/repro/embed/encoder.py)
+DIM = 384              # E5_SMALL's width (src/repro_torch/embed/encoder.py)
+E5_ATTN = (64, 256, 256, 12, 12, 32)   # [b, sq, sk, h, hk, hd]: one Embedder batch of 64
+                                       # texts at max_len 256, E5_SMALL's heads, f32
 N_CLUSTERS = 256       # cut from default_n_clusters(1e6) = 1000: host k-means++ cost
 NPROBE = 8             # 3% of the lists per query; a block scans its 8 queries' union
 K = 10
@@ -448,9 +498,12 @@ class RowEmbedder:
         self.index_key = "chip-smoke-rows"
 
     def embed(self, texts):
-        kind = texts[0][0]
         idx = np.fromiter((int(t[2:]) for t in texts), np.int64, len(texts))
-        return self.rows[kind][idx]
+        # a dispatcher may fuse corpus and query texts into one batch
+        is_q = np.fromiter((t[0] == "q" for t in texts), bool, len(texts))
+        out = np.empty((len(texts), self.dim), np.float32)
+        out[~is_q], out[is_q] = self.rows["c"][idx[~is_q]], self.rows["q"][idx[is_q]]
+        return out
 
 
 def make_corpus(rows: int, seed: int, noise: float) -> tuple[np.ndarray, np.ndarray]:
@@ -473,17 +526,17 @@ def recall(exact: np.ndarray, got: np.ndarray) -> float:
                           for e, g in zip(exact.tolist(), got.tolist())]))
 
 
-def topk_agree(got: torch.Tensor, want: torch.Tensor, k: int) -> int:
+def topk_agree(got: torch.Tensor, want: torch.Tensor, k: int, tol: float = TOL) -> int:
     """The top-k ids of each row of a kernel's scores against the plain
     version's: a row whose ids differ is allowed only where the plain scores
-    of the two id lists agree to TOL (a near-tie).  -> rows with identical
-    ids."""
+    of the two id lists agree to ``tol`` (a near-tie).  -> rows with
+    identical ids."""
     gi = torch.topk(got, k, dim=1).indices
     wv, wi = torch.topk(want, k, dim=1)
     same = (gi == wi).all(dim=1)
     if not bool(same.all()):
         gap = float((want.gather(1, gi) - wv).abs()[~same].max())
-        assert gap <= TOL, f"top-{k} ids differ beyond a near-tie: {gap}"
+        assert gap <= tol, f"top-{k} ids differ beyond a near-tie: {gap}"
     return int(same.sum())
 
 
@@ -975,6 +1028,7 @@ def oracle_kernel_phase(args, bw, fp32, bf16) -> dict:
             ((3, 77, 77, 8, 4, 16), f32, True, 0),       # hd 16, odd S
             ((3, 77, 77, 8, 4, 16), b16, False, 8),
             ((2, 129, 61, 4, 2, 16), f32, False, 0),
+            (E5_ATTN, f32, False, 0),                    # the E5 embedder's shape
             ("misaligned", b16, True, 0)]:
         if shape == "misaligned":
             shape = (2, 96, 96, 4, 2, HD)
@@ -1019,6 +1073,7 @@ def oracle_kernel_phase(args, bw, fp32, bf16) -> dict:
                 bound_by=by, nbytes=nbytes, flops=flops, clock="profiler", plain_clock=pclock,
                 shape=f"q[{B},{S},{H},{HD}] k/v[{B},{S},{HK},{HD}] bf16 causal")
         del q, k, v, qt, kt, vt
+    e5_attention_row(g, bw, fp32)
 
     # the register path (rows of up to 8192 bf16 / 4096 f32 values, here one
     # row and rows no multiple of the persistent blocks' share) and the
@@ -1064,6 +1119,28 @@ def oracle_kernel_phase(args, bw, fp32, bf16) -> dict:
             f"flops={r['flops']}")
     torch.cuda.empty_cache()
     return out
+
+
+def e5_attention_row(g, bw, fp32) -> None:
+    """flash_attention at the E5 embedder's shape (f32, non-causal, hd 32:
+    the SIMT kernel), timed beside SDPA and the bound; printed only, the
+    kernel's row stays the oracle's bf16 shape."""
+    b, s, _, h, hk, hd = E5_ATTN
+    q, k, v = (torch.randn(b, s, n, hd, device="cuda", generator=g) for n in (h, hk, hk))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms, lib, ratios = interleaved_ms(lambda: kfa.flash_attention(q, k, v, causal=False),
+                                     lambda: sdpa(qt, kt, vt), 10)
+    plain, pclock = plain_ms(lambda: ref.flash_attention_ref(q, k, v, causal=False), 5)
+    flops = 4 * b * h * hd * s * s
+    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    bms, by = bound(nbytes, flops, bw, fp32)
+    log(f"flash_attention E5 q/k/v[{b},{s},{h},{hd}] f32 non-causal, device time "
+        f"(profiler): kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+        f"{plain:.4f} ms ({pclock}), SDPA {lib:.4f} ms; bound {bms:.4f} ms ({by}; the "
+        f"kernel reaches {bms / ms:.3f} of it); "
+        f"median kernel / SDPA {statistics.median(ratios):.3f} (each round: "
+        + ", ".join(f"{r:.3f}" for r in ratios) + ")")
 
 
 _WORDS = ("the", "claim", "evidence", "report", "study", "shows", "that", "model",
@@ -1171,6 +1248,18 @@ def agreement(cfg, params, engine, prompts, cmp_prompts, seed: int) -> None:
         assert ok, what
 
 
+def counted_forwards(runner) -> list:
+    """Count ``runner.logprobs`` calls (the engine's scoring forwards)."""
+    n = [0]
+    score = runner.logprobs
+
+    def counted(tokens):
+        n[0] += 1
+        return score(tokens)
+    runner.logprobs = counted
+    return n
+
+
 def oracle_phase(args) -> dict:
     """The LLM oracle at full width, its calls counted; the plain path on the
     card against it; the ops.rmsnorm entry at its activations."""
@@ -1191,14 +1280,7 @@ def oracle_phase(args) -> dict:
         f"{n_params} params ({sum(t.numel() * t.element_size() for t in leaves) / 2**30:.2f}"
         f" GiB), drawn on the card in {time.perf_counter() - t0:.2f} s")
 
-    forwards = [0]
-    score = engine.runner.logprobs
-
-    def counted(tokens):
-        forwards[0] += 1
-        return score(tokens)
-    engine.runner.logprobs = counted
-
+    forwards = counted_forwards(engine.runner)
     prompts = oracle_prompts(64, args.seed)
     cmp_prompts = [compare_prompt(None, "the claim with more evidence", prompts[2 * i][7:207],
                                   prompts[2 * i + 1][7:207]) for i in range(32)]
@@ -1262,7 +1344,7 @@ def oracle_phase(args) -> dict:
         f"{wall * 1e3 / 2:.1f} ms per 32-prompt batch, {ntok / wall:.0f} prompt tokens/s")
     seqs = [TOKENIZER.encode(p)[:512] for p in prompts[:32]]
     toks = TOKENIZER.pad_batch(seqs, max(16, max(len(q) for q in seqs)))
-    fwd_ms, recs = profiled(lambda: score(toks))
+    fwd_ms, recs = profiled(lambda: engine.runner.logprobs(toks))
     dev = sorted(((e.self_device_time_total / 1e3, e.key) for e in recs), reverse=True)
     busy = sum(ms for ms, _ in dev)
     assert busy > 0, "the profiler recorded no device time for the forward"
@@ -1455,12 +1537,16 @@ def recorded_runs():
         engine_mod.ContinuousBatchScheduler = saved
 
 
-def check_runs(runs, sizes) -> tuple[int, int, int]:
-    """Every submitted request done, none failed, none retried. -> (prefill
+def check_runs(runs, sizes=None) -> tuple[int, int, int]:
+    """Every submitted request done (``sizes``: the requests of each run,
+    where the caller knows them), none failed, none retried. -> (prefill
     steps, decode steps, generated tokens) over the runs."""
-    assert [len(done) for _, done in runs] == list(sizes), ([len(d) for _, d in runs], sizes)
+    if sizes is not None:
+        assert [len(done) for _, done in runs] == list(sizes), \
+            ([len(d) for _, d in runs], sizes)
     reqs = [r for _, done in runs for r in done]
-    assert all(r.done and not r.failed for r in reqs), [(r.rid, r.failed) for r in reqs]
+    assert reqs and all(r.done and not r.failed for r in reqs), \
+        [(r.rid, r.failed) for r in reqs]
     retries = sum(r.retries for r in reqs)
     assert retries == 0, f"{retries} retries: a RuntimeError was swallowed by the scheduler"
     return (sum(s.prefill_steps for s, _ in runs), sum(s.decode_steps for s, _ in runs),
@@ -2099,6 +2185,381 @@ def semframe_phase(args, smi: str) -> None:
             f"{how}), plain wall {p['wall']:.2f} s")
 
 
+# The serving phases (15, 16): launch/serve.py's Gateway at full width over
+# the oracle and the E5 embedder, then a continuous query over a growing
+# table and the serving CLI as a user runs it.
+SERVE_SESSIONS = 8          # over two tenants, through Gateway(max_inflight=4)
+SERVE_RECORDS = 64          # records of 300-480 bytes a map -> filter pipeline
+SERVE_DOCS = 20_000         # passages of 100-300 bytes the search sessions share
+SERVE_MAP = "one-line gist of {doc}"           # launch/serve.py's engine pipeline
+SERVE_FILTER = "the {doc} mentions a component"
+# E5-small's pooled unit vectors, kernel path against the plain path
+# (attn_impl="full") on the same weights: f32 sums in another order through
+# 12 layers (7.45e-08 apart on the H100 at seed 0)
+EMB_TOL = 1e-5
+STREAM_ROWS = 200_000       # the table before the commits
+STREAM_COMMITS, STREAM_DELTA = 4, 5_000   # 20,000 rows: a spill of 0.10, no retrain
+STREAM_RECALL = 0.90
+SERVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "serve_smoke")
+
+
+def passages(n: int, seed: int, lo: int = 100, hi: int = 300) -> list[str]:
+    """``n`` passages of ``lo``..``hi`` bytes of words, made from ``seed``."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for m in rng.integers(lo, hi + 1, n):
+        body = " ".join(_WORDS[i] for i in rng.integers(0, len(_WORDS), int(m) // 3))
+        out.append(body[:m].ljust(int(m), "."))
+    return out
+
+
+class TextCounter:
+    """An embedder that keeps every text it is asked to embed, in order, and
+    the size of each call."""
+
+    def __init__(self, embedder):
+        self.embedder = embedder
+        self.texts: list[str] = []
+        self.calls: list[int] = []
+
+    @property
+    def dim(self) -> int:
+        return self.embedder.dim
+
+    def embed(self, texts):
+        self.texts.extend(texts)
+        self.calls.append(len(texts))
+        return self.embedder.embed(texts)
+
+
+@contextlib.contextmanager
+def attention_kinds():
+    """Count ``flash_attention`` calls by (dtype, causal) while the block
+    runs; the launch counter stays the kernel wrapper's own."""
+    kinds: dict = {}
+    real = kfa.flash_attention
+
+    def spy(q, k, v, *, causal=True, window=0):
+        key = f"{str(q.dtype).removeprefix('torch.')} {'causal' if causal else 'non-causal'}"
+        kinds[key] = kinds.get(key, 0) + 1
+        return real(q, k, v, causal=causal, window=window)
+    kfa.flash_attention = spy
+    try:
+        yield kinds
+    finally:
+        kfa.flash_attention = real
+
+
+def device_busy(fn) -> tuple[float, float | None, int]:
+    """(wall s, device busy ms or None, device records) of one call of ``fn``
+    under the profiler's CUDA activity (kernels, copies and memsets of every
+    thread).  Busy is the union of the records' intervals, read from the raw
+    records: building the profiler's event tree for the million launches of
+    a served run takes minutes.  The call is not repeated: with no device
+    record the busy time is None (not measured)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        t1 = time.perf_counter()
+    t2 = time.perf_counter()
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = np.array([(e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                      if e.device_type() == cuda], np.int64).reshape(-1, 2)
+    busy = union_ns(spans)
+    log(f"profiler: stopped in {t2 - t1:.2f} s, {len(spans)} device records read in "
+        f"{time.perf_counter() - t2:.2f} s")
+    return wall, busy / 1e6 if len(spans) else None, len(spans)
+
+
+def union_ns(spans: np.ndarray) -> int:
+    """Length of the union of the [start, end) intervals in ``spans`` [n, 2]:
+    each interval, in order of start, adds what reaches past every earlier end."""
+    if not len(spans):
+        return 0
+    spans = spans[np.argsort(spans[:, 0], kind="stable")]
+    start, end = spans[:, 0], spans[:, 1]
+    reach = np.concatenate([[start[0]], np.maximum.accumulate(end)[:-1]])
+    return int(np.maximum(end - np.maximum(start, reach), 0).sum())
+
+
+def serving_phase(args, smi: str) -> dict:
+    """Phase 15: launch/serve.py's Gateway at full width.  8 sessions over 2
+    tenants: 4 run the engine pipeline (sem_map -> sem_filter) over 64
+    records, two pairs sharing theirs; 4 run a lazy sem_search (k 10) over
+    20,000 passages that E5-small embeds once through the IndexRegistry."""
+    full = get_config(ORACLE)
+    oracle_cfg = full.with_(vocab_size=TOKENIZER.vocab_size)
+    proxy_cfg = oracle_cfg.with_(num_layers=4)
+    assert oracle_cfg.attn_impl == E5_SMALL.attn_impl == "auto"
+    log(f"cut: {ORACLE} vocab_size {full.vocab_size} -> {oracle_cfg.vocab_size} (oracle "
+        f"and proxy); the proxy's num_layers {full.num_layers} -> 4")
+    t0 = time.perf_counter()
+    made = make_session(oracle_cfg, proxy_cfg, max_seq=512, seed=args.seed)
+    # make_session's embedder is the reference's smoke default (E5_SMALL cut to
+    # 2 layers, d 64); the phase serves E5_SMALL at its published widths
+    embedder = Embedder(E5_SMALL, seed=args.seed + 2)
+    oracle = CountingBackend(made.oracle._m)
+    proxy = CountingBackend(made.proxy._m)
+    texts = TextCounter(embedder)
+    sess = Session(oracle=oracle, proxy=proxy, embedder=texts)
+    torch.cuda.synchronize()
+    e5 = E5_SMALL
+    log(f"session: oracle {ORACLE} ({oracle_cfg.num_layers} layers, d {oracle_cfg.d_model}, "
+        f"{oracle_cfg.dtype}), proxy ({proxy_cfg.num_layers} layers), embedder {e5.name} "
+        f"({e5.num_layers} layers, d {e5.d_model}, {e5.num_heads} heads, ff {e5.d_ff}, "
+        f"{e5.dtype}; it replaces make_session's 2-layer default) made in "
+        f"{time.perf_counter() - t0:.2f} s; allocated on the card "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    recsets = [[{"id": f"r{s}-{i}", "doc": d}
+                for i, d in enumerate(oracle_prompts(SERVE_RECORDS, args.seed + 15 + s))]
+               for s in range(2)]
+    docs = [{"id": i, "text": t} for i, t in enumerate(passages(SERVE_DOCS, args.seed + 17))]
+    queries = [docs[997 * j]["text"][:80] for j in range(4)]
+    oracle._m.engine.generate(["warm-up: cuBLAS and the kernels load"], max_new_tokens=2)
+    embedder.embed(["warm-up"])
+    forwards = counted_forwards(oracle._m.engine.runner)
+    gw = Gateway(sess, max_inflight=4)
+    try:
+        def pipeline(i: int):
+            if i % 2 == 0:       # the engine pipeline; sessions 0, 2 and 4, 6 share records
+                return (SemFrame(recsets[i // 4], gw.session).lazy()
+                        .sem_map(SERVE_MAP, out_column="gist").sem_filter(SERVE_FILTER))
+            return (SemFrame(docs, gw.session).lazy()
+                    .sem_search("text", queries[i // 2], k=K, index_kind="exact"))
+
+        handles, rows = [], []
+
+        def serve():
+            handles.extend(gw.submit(pipeline(i), tenant=f"tenant{(i // 2) % 2}")
+                           for i in range(SERVE_SESSIONS))
+            rows.extend(h.result(timeout=900) for h in handles)
+
+        for _, mod in _KERNELS:
+            mod.launches = 0
+        forwards[0] = 0
+        torch.cuda.reset_peak_memory_stats()
+        with recorded_runs() as runs, attention_kinds() as kinds:
+            wall, busy, n_recs = device_busy(serve)
+        launches = {name: mod.launches for name, mod in _KERNELS}
+        snap = gw.snapshot()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        statuses = [h.status for h in handles]
+        assert statuses == ["done"] * SERVE_SESSIONS, statuses
+        assert snap["failed"] == 0 and snap["completed"] == SERVE_SESSIONS, snap
+        n_prefill, n_decode, _ = check_runs(runs)
+        for h in handles:
+            log("serve session", json.dumps(h.summary()))
+        idle = "not measured (the profiler kept no device record)" if busy is None else \
+            f"{1 - busy / (wall * 1e3):.4f} (device busy {busy:.2f} ms of {wall * 1e3:.1f} ms, " \
+            f"{n_recs} device records)"
+        d = snap["dispatch"]
+        log(f"served: {SERVE_SESSIONS}/{SERVE_SESSIONS} sessions in {wall:.2f} s under the "
+            f"profiler ({SERVE_SESSIONS / wall:.4f} sessions/s, p50 {snap['p50_latency_s']} s, "
+            f"p95 {snap['p95_latency_s']} s); device idle share {idle}; dispatcher fused "
+            f"{d['fused_calls']} calls into {d['fused_batches']} batches ({d['backend_prompts']} "
+            f"backend prompts for {d['requested_prompts']} requested, cross-session shared "
+            f"{d['cross_shared']} + {d['cross_shared_embed']} embeds); cache {snap['cache']}; "
+            f"registry builds {snap['index_builds']} hits {snap['index_hits']}; peak memory "
+            f"{peak:.2f} GiB; {smi}")
+
+        # the registry built the corpus index once; every text reached the
+        # embedder and every prompt a model exactly once
+        assert snap["index_builds"] == 1 and snap["index_hits"] >= 3, snap
+        sent = [p for b in oracle.batches for p in b]
+        assert len(sent) == len(set(sent)) == 4 * SERVE_RECORDS, (len(sent), len(set(sent)))
+        assert not proxy.batches, "the gold pipeline reached the proxy"
+        assert len(texts.texts) == len(set(texts.texts)) == SERVE_DOCS + len(queries)
+        assert d["backend_prompts"] == len(sent) + len(texts.texts), d
+        assert snap["cache"]["evictions"] == 0, snap["cache"]
+        for a, b in ((0, 2), (4, 6)):
+            assert rows[a] == rows[b], f"sessions {a} and {b} share a pipeline, not records"
+        assert all(len(rows[i]) == K for i in (1, 3, 5, 7)), [len(r) for r in rows]
+
+        # launches: E5 (f32 non-causal, 12 a batch of 64), the oracle's
+        # prefills and scoring forwards (bf16 causal, 28 each), its decode steps
+        e5_batches = sum(-(-n // 64) for n in texts.calls)
+        log(f"serving launches {launches}; flash_attention by kind {kinds}; {n_prefill} "
+            f"prefills, {n_decode} decode steps, {forwards[0]} scoring forwards, "
+            f"{e5_batches} embedder batches")
+        assert kinds.get("float32 non-causal") == e5.num_layers * e5_batches, kinds
+        llm = str(oracle_cfg.activation_dtype).removeprefix("torch.")
+        assert kinds.get(f"{llm} causal") == \
+            oracle_cfg.num_layers * (n_prefill + forwards[0]), kinds
+        assert launches["flash_attention"] == sum(kinds.values()), (launches, kinds)
+        assert launches["decode_attention"] == oracle_cfg.num_layers * n_decode > 0, launches
+        assert launches["similarity"] >= len(queries), launches
+
+        # the embedder's kernel path against its plain path on the card
+        dev = repro_torch.current_device()
+        (index,) = gw.index_registry._indexes.values()
+        kernel_vecs = torch.from_numpy(np.asarray(index.vectors)).to(dev)
+        t0 = time.perf_counter()
+        plain = Embedder(E5_SMALL.with_(attn_impl="full"), params=embedder.params)
+        plain_vecs = torch.from_numpy(plain.embed([r["text"] for r in docs])).to(dev)
+        plain_s = time.perf_counter() - t0
+        err = float((kernel_vecs - plain_vecs).abs().max())
+        log(f"E5-small over {SERVE_DOCS} passages: kernel path against the plain path "
+            f"(attn_impl='full', {plain_s:.2f} s): max abs error {err:.3g} (limit {EMB_TOL})")
+        assert err <= EMB_TOL, f"embeddings differ by {err} > {EMB_TOL}"
+        qk = torch.from_numpy(embedder.embed(queries)).to(dev)
+        qp = torch.from_numpy(plain.embed(queries)).to(dev)
+        same = topk_agree(qk @ kernel_vecs.T, qp @ plain_vecs.T, K, 2 * EMB_TOL)
+        # each search session's hits are the top-K of its query over the index
+        scores = qk @ kernel_vecs.T
+        top = torch.topk(scores, K, dim=1).values
+        for j, i in enumerate((1, 3, 5, 7)):
+            got = torch.tensor([r["id"] for r in rows[i]], device=scores.device)
+            gap = float((scores[j, got] - top[j]).abs().max())
+            assert gap <= TOL, f"session {i}: hits are not its query's top-{K} ({gap})"
+        log(f"sem_search top-{K} ids: the kernel path's equal to the plain path's in {same} "
+            f"of {len(queries)} queries (the rest within a near-tie of {2 * EMB_TOL})")
+    finally:
+        gw.close()
+    return launches
+
+
+def stream_phase(args, smi: str) -> dict:
+    """Phase 16: a continuous sem_sim_join (k 10, fp32 IVF) of 256 queries
+    over a CorpusTable of the phase-2 mixture through four commits of 5,000
+    appended rows, then the serving CLI as subprocesses."""
+    rows = STREAM_ROWS
+    total = rows + STREAM_COMMITS * STREAM_DELTA
+    t0 = time.perf_counter()
+    corpus, queries = make_corpus(total, args.seed, NOISE)   # phase 2's centres
+    emb = TextCounter(RowEmbedder(corpus, queries))
+    table = CorpusTable([{"id": i, "text": f"c:{i}"} for i in range(rows)])
+    qrecs = [{"qid": j, "q": f"q:{j}"} for j in range(N_QUERIES)]
+    sess = Session(oracle=None, embedder=emb)
+    log(f"stream table {rows} x {DIM} made in {time.perf_counter() - t0:.2f} s")
+    # the shared cache keeps one row per embedded text: room for all of them
+    gw = Gateway(sess, max_inflight=1, cache_capacity=2 * (total + N_QUERIES))
+    sub = None
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        plan = (SemFrame(qrecs, sess).lazy()
+                .sem_sim_join(table.lazy(sess), "q", "text", k=K, index_kind="ivf",
+                              quantize="none"))
+        for _, mod in _KERNELS:
+            mod.launches = 0
+        emissions, walls, embedded = [], [], []
+        t0 = time.perf_counter()
+        sub = gw.subscribe(plan)
+        for c in range(STREAM_COMMITS + 1):
+            if c:
+                lo = rows + (c - 1) * STREAM_DELTA
+                t0 = time.perf_counter()
+                table.append([{"id": i, "text": f"c:{i}"} for i in range(lo, lo + STREAM_DELTA)])
+            em = sub.poll(timeout=600)
+            assert em is not None and em.error is None, em
+            assert em.version == c + 1, (em.version, c)
+            walls.append(time.perf_counter() - t0)
+            emissions.append(em)
+            embedded.append(len(emb.texts))
+        launches = {name: mod.launches for name, mod in _KERNELS}
+        snap = gw.snapshot()
+        (index,) = gw.index_registry._indexes.values()
+        log(f"stream: emissions at versions {[e.version for e in emissions]} in "
+            f"{[round(w, 2) for w in walls]} s (the first builds the IVF index), texts "
+            f"embedded after each {embedded}; registry builds {snap['index_builds']} updates "
+            f"{snap['index_updates']} delta rows {snap['index_delta_rows']}; index "
+            f"{index.describe()}; launches {launches}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {smi}")
+        assert snap["index_builds"] == 1 and snap["index_updates"] == STREAM_COMMITS, snap
+        assert snap["index_delta_rows"] == STREAM_COMMITS * STREAM_DELTA, snap
+        assert index.retrains == 0 and index.delta_rows == STREAM_COMMITS * STREAM_DELTA
+        assert embedded[0] == rows + N_QUERIES, embedded
+        assert np.diff(embedded).tolist() == [STREAM_DELTA] * STREAM_COMMITS, embedded
+        assert launches["cluster_scan"] > 0 and launches["similarity"] > 0, launches
+
+        # recall@10 of each emission against an exact search over its snapshot
+        dev = repro_torch.current_device()
+        q = torch.from_numpy(queries).to(dev)
+        recalls = []
+        for c, em in enumerate(emissions):
+            n = rows + c * STREAM_DELTA
+            exact = torch.topk(q @ torch.from_numpy(corpus[:n]).to(dev).T, K, dim=1)
+            ids = np.full((N_QUERIES, K), -1)
+            for r in em.records:
+                row = ids[r["qid"]]
+                row[np.argmax(row < 0)] = r["right_id"]
+            assert (ids >= 0).all() and (ids < n).all(), "an emission misses or outgrows rows"
+            recalls.append(recall(exact.indices.cpu().numpy(), ids))
+        log(f"stream recall@{K} per emission against exact: {recalls} (floor {STREAM_RECALL})")
+        assert min(recalls) >= STREAM_RECALL, recalls
+
+        # the kernel path against the plain path on the same index; the
+        # search an emission runs passes the snapshot's cutoff (max_pos),
+        # which sorts each query's whole candidate row on the host
+        t0 = time.perf_counter()
+        got_s, got_i = index.search(queries, K)
+        free_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        index.search(queries, K, max_pos=len(index))
+        cut_s = time.perf_counter() - t0
+        log(f"stream index search of {N_QUERIES} queries: {free_s:.3f} s, with the "
+            f"snapshot cutoff (max_pos) {cut_s:.3f} s")
+        saved = ops.DEFAULT_IMPL
+        ops.DEFAULT_IMPL = "ref"
+        try:
+            want_s, want_i = index.search(queries, K)
+        finally:
+            ops.DEFAULT_IMPL = saved
+        same = (got_i == want_i).all(axis=1)
+        gap = float(np.abs(got_s - want_s)[~same].max()) if (~same).any() else 0.0
+        assert gap <= TOL, f"IVF top-{K} ids differ from the plain path beyond a near-tie ({gap})"
+        log(f"stream index search: top-{K} ids identical to the plain path's in "
+            f"{int(same.sum())} of {N_QUERIES} queries, max score difference "
+            f"{float(np.abs(got_s - want_s).max()):.3g}")
+    finally:
+        if sub is not None:
+            sub.cancel()
+        gw.close()
+    del corpus, emb, table
+    cli_runs(smi)
+    return launches
+
+
+def cli_runs(smi: str) -> None:
+    """``python -m repro_torch.launch.serve`` as a user runs it, on the card:
+    the simulated backend with auditing and a metrics dump, then the engine
+    backend at make_session's own defaults."""
+    os.makedirs(SERVE_DIR, exist_ok=True)
+    dump = os.path.join(SERVE_DIR, "metrics.txt")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.path.join(root, "src")}
+    for argv, n in ((["--sessions", "8", "--tenants", "2", "--records", "400", "--audit",
+                      "--metrics-dump", dump], 8),
+                    (["--backend", "engine", "--sessions", "4"], 4)):
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", *argv]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, env=env, cwd=root, capture_output=True, text=True,
+                             timeout=600)
+        wall = time.perf_counter() - t0
+        lines = res.stdout.splitlines()
+        log(f"$ python -m repro_torch.launch.serve {' '.join(argv)}  (exit {res.returncode}, "
+            f"{wall:.1f} s)")
+        for line in lines:
+            if not line.startswith('[serve] {"sid"'):
+                log("  " + line[:600])
+        assert res.returncode == 0, res.stderr[-4000:]
+        assert any(line.startswith(f"[serve] {n}/{n} sessions") for line in lines), lines
+        sessions = [json.loads(line[len("[serve] "):]) for line in lines
+                    if line.startswith('[serve] {"sid"')]
+        assert [s["status"] for s in sessions] == ["done"] * n, sessions
+        if "--audit" in argv:
+            audit = next(line for line in lines if line.startswith("[serve] audit "))
+            report = json.loads(audit[len("[serve] audit "):])
+            assert any(c["audited"] > 0 for c in report["cascades"]), report
+            with open(dump, encoding="utf-8") as fh:
+                samples = parse_exposition(fh.read())
+            log(f"  metrics exposition: {len(samples)} samples parse, e.g. "
+                f"repro_gateway_sessions_total "
+                f"{ {k: v for k, v in samples.items() if 'gateway_sessions' in k} }")
+    log(f"serving CLI on {smi}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -2232,6 +2693,19 @@ def main() -> None:
     # 14. the SemFrame main path: plan, optimizer and operators over the kernels
     semframe_phase(args, smi)
     lap("14 semframe")
+
+    # 15. the serving gateway at full width over the oracle and the embedder
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving = {"15 serving": serving_phase(args, smi)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("15 serving")
+
+    # 16. a continuous query over a growing table, and the serving CLI
+    serving["16 stream"] = stream_phase(args, smi)
+    lap("16 stream and CLI")
+    log(f"serving launches {json.dumps(serving)}")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"device: {smi}")

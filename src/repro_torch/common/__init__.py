@@ -93,6 +93,12 @@ def init_params(specs: SpecTree, generator: torch.Generator) -> dict:
     return unflatten({p: specs[p].materialize(generator) for p in sorted(specs)})
 
 
+def tree_to(tree: Mapping, device: torch.device) -> dict:
+    """A nested param dict with every leaf moved to ``device``."""
+    return {k: tree_to(v, device) if isinstance(v, Mapping) else v.to(device)
+            for k, v in tree.items()}
+
+
 def param_count(specs: SpecTree) -> int:
     return sum(int(np.prod(s.shape)) for s in specs.values())
 

@@ -20,6 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.common import tree_to
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.tokenizer import TOKENIZER
 from repro_torch.device import current_device
@@ -54,7 +55,7 @@ class InferenceEngine:
             gen = torch.Generator(device=device).manual_seed(seed)
             params = registry.init_params(cfg, gen)
         else:
-            params = _to(params, device)
+            params = tree_to(params, device)
         self.runner = ModelRunner(cfg, params, max_slots=max_slots, max_seq=max_seq)
         self.sampler = Sampler(temperature=temperature, seed=seed)
         self.stats = EngineStats()
@@ -119,8 +120,3 @@ class InferenceEngine:
         option_token_ids = [TOKENIZER.encode(str(min(i, 9)), bos=False)[0]
                             for i in range(n_options)]
         return np.argmax(logp[:, option_token_ids], axis=-1)
-
-
-def _to(tree: dict, device: torch.device) -> dict:
-    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
-            for k, v in tree.items()}

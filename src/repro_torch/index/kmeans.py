@@ -13,12 +13,17 @@ def kmeans(vectors: np.ndarray, k: int, *, iters: int = 25, seed: int = 0
     k = min(k, n)
     rng = np.random.default_rng(seed)
 
-    # k-means++ style init on cosine distance
+    # k-means++ style init on cosine distance.  ``best`` is each point's
+    # highest similarity to the centres chosen so far, raised as each centre
+    # lands: the reference recomputes it from every centre for every new
+    # one (O(k^2 n d)); a max is exact, so the draws are the same
     centers = [x[rng.integers(n)]]
+    best = x @ centers[0]
     for _ in range(1, k):
-        d = 1.0 - np.max(np.stack([x @ c for c in centers], 1), axis=1)
+        d = 1.0 - best
         d = np.clip(d, 1e-9, None) ** 2
         centers.append(x[rng.choice(n, p=d / d.sum())])
+        best = np.maximum(best, x @ centers[-1])
     c = np.stack(centers)
 
     assign = np.full(n, -1, np.int64)  # sentinel: nothing assigned yet

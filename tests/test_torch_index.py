@@ -15,9 +15,11 @@ import repro_torch
 from repro.index import IVFIndex as JIVF
 from repro.index import VectorIndex as JVec
 from repro.index import load_index as jload
+from repro.index.kmeans import kmeans as jkmeans
 from repro.kernels import ops as jops
 from repro_torch.index import IVFIndex, VectorIndex, ivf_from_arrays, load_index
 from repro_torch.index.backend import MASKED_SCORE
+from repro_torch.index.kmeans import kmeans
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -59,6 +61,24 @@ def _same(port, ref, q, k, **kw):
     np.testing.assert_allclose(ts, js, **TOL)
     assert port.last_stats == ref.last_stats
     return ts, ti
+
+
+# ---------------------------------------------------------------------------
+# the coarse quantizer
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,k,d,seed", [(2000, 40, 32, 0), (3000, 300, 16, 5),
+                                        (500, 64, 8, 1), (64, 64, 8, 2)])
+def test_kmeans_equals_reference(n, k, d, seed):
+    """The port's k-means++ init keeps each point's best similarity as the
+    centres land (the reference recomputes it from every centre): same
+    draws, so the same centres and assignment, bit for bit."""
+    x = _clustered(n, d=d, n_centers=max(k // 3, 2), seed=seed)[0]
+    tc, ta = kmeans(x, k, iters=10, seed=seed)
+    jc, ja = jkmeans(x, k, iters=10, seed=seed)
+    np.testing.assert_array_equal(tc, jc)
+    np.testing.assert_array_equal(ta, ja)
 
 
 # ---------------------------------------------------------------------------

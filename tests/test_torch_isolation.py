@@ -3,8 +3,10 @@
 on a machine that has neither.  The guarded run imports every module of the
 port and drives retrieval, the LLM oracle (predicate, LLM rerank), the
 generate path (``EngineModel.generate``, ``sem_map``, ``sem_agg``, a paged
-decode step) and a lazy ``SemFrame`` pipeline through the plan layer
-(filter -> join -> topk, optimized and collected) on the CPU."""
+decode step), a lazy ``SemFrame`` pipeline through the plan layer
+(filter -> join -> topk, optimized and collected), a ``Gateway`` session, a
+``Subscription`` over a ``CorpusTable`` with one append and an ``Embedder``
+forward on the CPU."""
 import os
 import re
 import subprocess
@@ -82,6 +84,26 @@ _GUARDED = textwrap.dedent("""
     plan = lz.explain(prefilter_threshold=100)
     rows = lz.collect(prefilter_threshold=100).records
     assert "inject_sim_prefilter" in plan and 0 < len(rows) <= 3, (plan, rows)
+    from repro_torch.serve import Gateway
+    from repro_torch.stream import CorpusTable
+    sess = Session(oracle=oracle, embedder=emb, sample_size=20)
+    with Gateway(sess, max_inflight=2) as gw:
+        h = gw.submit(SemFrame(left, gw.session).lazy()
+                      .sem_filter("the {abstract} is checkable"), tenant="a")
+        served = h.result(timeout=60)
+        assert h.status == "done" and 0 < len(served) < len(left), h.summary()
+        table = CorpusTable(left[:20])
+        sub = gw.subscribe(table.lazy(sess).sem_filter("the {abstract} is checkable"))
+        em0 = sub.poll(timeout=60)
+        table.append(left[20:])
+        em1 = sub.poll(timeout=60)
+        assert em0.error is None and em1.error is None, (em0, em1)
+        assert (em0.version, em1.version) == (1, 2) and em1.records == served, em1
+        sub.cancel()
+    from repro_torch.embed.encoder import E5_SMALL, Embedder
+    vecs = Embedder(E5_SMALL.with_(num_layers=2, d_model=64, num_heads=4, num_kv_heads=4,
+                                   d_ff=128)).embed(["a claim", "another, longer claim"])
+    assert vecs.shape == (2, 64) and np.allclose(np.linalg.norm(vecs, axis=1), 1.0, atol=1e-5)
     assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro") for m in sys.modules)
     print("modules", len(names))
 """)
@@ -93,7 +115,7 @@ def test_port_imports_and_runs_with_jax_and_repro_refused():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
     n = int(out.stdout.split("modules")[-1])
-    assert n >= 72          # every module of slices 1, 2a, 2b and the plan layer
+    assert n >= 87          # every module of slices 1, 2a-2c, the plan and serving layers
 
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|repro)(?:[.\s,]|$)", re.M)
