@@ -54,7 +54,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 in the fallback), and ``flash_attention`` at the E5
                 embedder's shape (q/k/v [64,256,12,32] f32, non-causal: the
                 SIMT kernel), also timed beside SDPA and its bound (printed
-                only; the kernel's row stays the oracle's bf16 shape); the
+                only; the kernel's row stays the oracle's bf16 shape), and
+                at mixtral's long prefill (q [1,8192,48,128], k/v
+                [1,8192,8,128], window 4096, bf16 and f32; the plain version
+                one kv-head's group at a time); the
                 bf16 kernel's SASS must hold
                 tensor-core instructions; timed by profiler device time
                 beside the bound (GB/s and its share) and SDPA / F.rms_norm,
@@ -82,7 +85,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 [32,1024,8,128]), a 256 window, S 4096 (many chunks a row),
                 8 and 16 q-heads a kv-head, Hk = H, hd 128, 100, 64, 17 and
                 16, S 77, 129 and 300, misaligned k/v, lens 0, S - 1 and
-                past S; two calls give identical bits and every merge ticket
+                past S, and mixtral's heads and window (k/v [8,8192,8,128],
+                48 q-heads, window 4096, lens past it); two calls give identical bits and every merge ticket
                 ends at 0; timed beside the bound (GB/s and its share) and
                 SDPA (bool mask, GQA), in turn over ROUNDS rounds;
  10. small generate — the smoke-size model (f32) generating on the card
@@ -173,10 +177,50 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 the card: the simulated backend (8 sessions, 2 tenants, 400
                 records, ``--audit``, a metrics dump that must parse) and the
                 engine backend (4 sessions at make_session's defaults); each
-                must print every session done.
+                must print every session done;
+ 17. the transformer families at full width — the MoE and VLM layouts at
+                their published widths and vocabularies, bf16, random weights
+                drawn on the card from ``--seed``, depth the one cut, one
+                family at a time (each freed before the next, its peak
+                memory printed).  First the three smoke configs (f32)
+                generating on the card against the CPU: identical tokens,
+                teacher-forced log-probs within 1e-5.  mixtral-8x22b (8 of
+                56 layers, 4096 window) as the oracle of ``EngineModel``:
+                ``predicate`` over 32 prompts, ``sem_map`` over 16 records
+                (32 new tokens, 16 slots) and one prompt of 6,000 bytes
+                through prefill (bucket 8192) and 16 decode steps, past the
+                window, then that prompt teacher-forced (one row, prefill at
+                bucket 8192, 15 decode steps at lens 6001-6015) through the
+                kernel path and the chunked plain path (``attn_impl=
+                "chunked"``, replaying the kernel path's experts) to
+                FAMILY_BF16_LOGPROB_TOL, while the plain path without the
+                window must land beyond it; paged against contiguous decode
+                (8 rows, pages of 16).  llama4-maverick (2 of 48 layers: one moe_interleave
+                group, 1 dense + 1 MoE layer of 128 experts with the shared
+                expert): 8 requests of 16 new tokens.  llama-3.2-vision-11b
+                (whole: 40 self layers, 8 cross blocks, their tanh gates set
+                to 0.5 from their zero init): 8 requests through the
+                scheduler, each with its own ``extra["image_embeds"]`` [1,
+                4096, 4096]; one prompt with two images must give two first
+                logits.  Launch counters set to 0 around each run:
+                ``flash_attention`` once a self-attention layer a prefill or
+                forward, ``decode_attention`` once a self-attention layer a
+                decode step, none from a cross block; every request done,
+                none failed or retried.  Prefill ms by bucket, the decode
+                step by active slots, generated tokens/s, one decode step
+                under the profiler (idle share).  The kernel path against
+                the plain path (``attn_impl="full"``), teacher-forced over
+                16 positions of 8 prompts: bf16 at the phase's depth to
+                FAMILY_BF16_LOGPROB_TOL beside a second correct plain path
+                (for the MoE configs the plain paths replay the kernel
+                path's expert choices, and a plain path that routes by
+                itself is printed with the router choices that differ), f32
+                to 1e-4 for mixtral cut to 2 layers and the VLM cut to one
+                group (5 self layers + 1 cross block).
 
 Phases 15 and 16's launch counts are printed on a line of their own,
-``serving launches {...}``.  The second-to-last line of output is ``{"kernels": [...]}``, whose
+``serving launches {...}``, and each family of phase 17 its numbers on a
+line ``<config> on <card>, <power limit>: {...}``.  The second-to-last line of output is ``{"kernels": [...]}``, whose
 ``clock`` says how ``ms`` and ``library_ms`` were timed ("profiler": device
 time; "events": CUDA events, host launch gaps included) and ``plain_clock``
 the same of ``plain_ms``; the last is ``{"ok": true, "device": {...}}``.
@@ -203,7 +247,7 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 import repro_torch  # noqa: E402
-from repro_torch.common import flatten  # noqa: E402
+from repro_torch.common import flatten, tree_to  # noqa: E402
 from repro_torch.configs import get_config, get_smoke  # noqa: E402
 from repro_torch.core.backends import synth  # noqa: E402
 from repro_torch.core.backends.simulated import (SimConfig,  # noqa: E402
@@ -223,7 +267,9 @@ from repro_torch.embed.encoder import E5_SMALL, Embedder  # noqa: E402
 from repro_torch.engine import engine as engine_mod  # noqa: E402
 from repro_torch.engine import paged  # noqa: E402
 from repro_torch.engine.engine import InferenceEngine  # noqa: E402
-from repro_torch.engine.scheduler import ContinuousBatchScheduler  # noqa: E402
+from repro_torch.engine import runner as runner_mod  # noqa: E402
+from repro_torch.engine.runner import ModelRunner  # noqa: E402
+from repro_torch.engine.scheduler import ContinuousBatchScheduler, Request  # noqa: E402
 from repro_torch.index.backend import MASKED_SCORE  # noqa: E402
 from repro_torch.index.quantile import quantile_calibrate  # noqa: E402
 from repro_torch.index.vector_index import VectorIndex  # noqa: E402
@@ -234,7 +280,8 @@ from repro_torch.kernels import ivf_scan as kivf  # noqa: E402
 from repro_torch.kernels import ivf_scan_q as kivfq  # noqa: E402
 from repro_torch.kernels import rmsnorm as krn  # noqa: E402
 from repro_torch.kernels import similarity as ksim  # noqa: E402
-from repro_torch.models import attention, layers, registry  # noqa: E402
+from repro_torch.models import attention, layers, registry, transformer  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.obs import parse_exposition, trace  # noqa: E402
 from repro_torch.serve import Gateway  # noqa: E402
 from repro_torch.stream import CorpusTable  # noqa: E402
@@ -356,6 +403,23 @@ def lap(phase: str) -> None:
     now = time.perf_counter()
     log(f"phase {phase}: {now - _LAP[0]:.1f} s")
     _LAP[0] = now
+
+
+def kernel_launches() -> dict:
+    """Every kernel's launch count."""
+    return {name: mod.launches for name, mod in _KERNELS}
+
+
+def zero_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    for _, mod in _KERNELS:
+        mod.launches = 0
+
+
+def free_card() -> None:
+    """Return the memory of freed tensors to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def peaks(name: str) -> tuple[str, float, float, float]:
@@ -758,8 +822,7 @@ def kernel_phase(args, idx_exact, idx_ivf, idx_q, queries, bw, fp32) -> dict:
 
 def main_path(corpus_texts, query_texts, emb, indexes) -> tuple[dict, dict]:
     """The user-facing calls, with every launch counter set to 0 first."""
-    for _, mod in _KERNELS:
-        mod.launches = 0
+    zero_launches()
     results = {}
     for name, idx in indexes.items():
         torch.cuda.synchronize()
@@ -770,7 +833,7 @@ def main_path(corpus_texts, query_texts, emb, indexes) -> tuple[dict, dict]:
         hits, st1 = sem_search(idx, query_texts[0], emb, k=K)
         assert hits == ids[0].tolist(), (name, hits, ids[0])
         results[name] = dict(ids=ids, scores=scores, search_s=dt, details=st)
-    launches = {name: mod.launches for name, mod in _KERNELS}
+    launches = kernel_launches()
     return results, launches
 
 
@@ -1042,6 +1105,24 @@ def oracle_kernel_phase(args, bw, fp32, bf16) -> dict:
             f"window={window}{' misaligned' if q.data_ptr() % 16 else ''}: "
             f"max abs err {e:.3g} (tol {ATTN_TOL[dt]} + rel)")
         err = max(err, e)
+    # mixtral's prefill of the long prompt: 48/8 heads (6 a kv-head) at its
+    # 8192 bucket under its 4096 window; the plain version runs one kv-head's
+    # group at a time, which keeps its score plane at 1.6 GB
+    mix = get_config(MIXTRAL)
+    h, hk, hd, w = mix.num_heads, mix.num_kv_heads, mix.hd, mix.sliding_window
+    grp = h // hk
+    for dt in (b16, f32):
+        q, k, v = qkv(1, 8192, 8192, h, hk, hd, dt)
+        got = kfa.flash_attention(q, k, v, causal=True, window=w)
+        e = max(close_err(got[:, :, j * grp:(j + 1) * grp],
+                          ref.flash_attention_ref(q[:, :, j * grp:(j + 1) * grp],
+                                                  k[:, :, j:j + 1], v[:, :, j:j + 1],
+                                                  causal=True, window=w), ATTN_TOL[dt])
+                for j in range(hk))
+        log(f"flash_attention [b,sq,sk,h,hk,hd]={[1, 8192, 8192, h, hk, hd]} {dt} causal=True "
+            f"window={w} (mixtral's long prefill): max abs err {e:.3g} (tol {ATTN_TOL[dt]} + rel)")
+        err = max(err, e)
+        del q, k, v, got
     tc = tensor_core_ops(kfa.KERNEL_NAMES[b16])
     log(f"flash_attention bf16 SASS (cuobjdump -sass): tensor-core instructions per "
         f"instance {tc}")
@@ -1293,8 +1374,7 @@ def oracle_phase(args) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    for _, mod in _KERNELS:
-        mod.launches = 0
+    zero_launches()
     forwards[0] = 0
     t0 = time.perf_counter()
     passes, scores = engine.predicate(prompts)
@@ -1305,7 +1385,7 @@ def oracle_phase(args) -> dict:
                           rerank_langex="{claim}")
     torch.cuda.synchronize()
     path_s = time.perf_counter() - t0
-    launches = {name: mod.launches for name, mod in _KERNELS}
+    launches = kernel_launches()
     n_fwd = forwards[0]
     log(f"oracle path: {n_fwd} forward passes in {path_s:.2f} s, launches {launches}, "
         f"engine stats {engine.stats}, peak memory "
@@ -1437,6 +1517,7 @@ def decode_kernel_phase(args, bw, bf16) -> dict:
                           ((6, 129, 4, 2, 16), 0),      # hd 16
                           ((6, 300, 4, 1, 16), 40),
                           ((4, 500, 4, 2, 17), 7),      # hd 17
+                          ((8, 8192, 48, 8, 128), 4096),  # mixtral's heads and window
                           ("misaligned", 0)]:
         for dt in (f32, b16):
             if shape == "misaligned":   # k/v rows of 16-byte multiples, not aligned
@@ -1528,6 +1609,9 @@ class RecordedScheduler(ContinuousBatchScheduler):
 
 @contextlib.contextmanager
 def recorded_runs():
+    """The runs of RecordedScheduler while the block runs.  On exit the class
+    lets go of them (the caller's list keeps them), so that no scheduler,
+    and through it no runner's weights, outlives its phase."""
     RecordedScheduler.runs = []
     saved = engine_mod.ContinuousBatchScheduler
     engine_mod.ContinuousBatchScheduler = RecordedScheduler
@@ -1535,6 +1619,7 @@ def recorded_runs():
         yield RecordedScheduler.runs
     finally:
         engine_mod.ContinuousBatchScheduler = saved
+        RecordedScheduler.runs, RecordedScheduler.current = [], None
 
 
 def check_runs(runs, sizes=None) -> tuple[int, int, int]:
@@ -1553,9 +1638,40 @@ def check_runs(runs, sizes=None) -> tuple[int, int, int]:
             sum(len(r.out_tokens) for r in reqs))
 
 
-def teacher_forced(runner, prompt: np.ndarray, out: list[int]) -> np.ndarray:
+@contextlib.contextmanager
+def timed_steps(runner):
+    """Time the runner's steps while the block runs: -> (prefills, decodes),
+    lists of (prompt tokens, s) and (active slots, s).  Each step returns
+    numpy, so it has ended on the card when its clock stops; its output must
+    be finite.  The active slots are those of RecordedScheduler.current."""
+    prefills, decodes = [], []
+    prefill, decode = runner.prefill_into_slot, runner.decode
+
+    def timed_prefill(tokens, slot, extra=None):
+        t = time.perf_counter()
+        out = prefill(tokens, slot, extra)
+        prefills.append((len(tokens), time.perf_counter() - t))
+        assert np.isfinite(out).all()
+        return out
+
+    def timed_decode(tokens, lens):
+        active = sum(r is not None for r in RecordedScheduler.current.slot_req)
+        t = time.perf_counter()
+        out = decode(tokens, lens)
+        decodes.append((active, time.perf_counter() - t))
+        assert np.isfinite(out).all()
+        return out
+
+    runner.prefill_into_slot, runner.decode = timed_prefill, timed_decode
+    try:
+        yield prefills, decodes
+    finally:
+        del runner.prefill_into_slot, runner.decode      # the class's methods again
+
+
+def teacher_forced(runner, prompt: np.ndarray, out: list[int], extra=None) -> np.ndarray:
     """Log-probs [len(out), V] along ``out`` through slot 0 of ``runner``."""
-    logits = [runner.prefill_into_slot(prompt, 0)]
+    logits = [runner.prefill_into_slot(prompt, 0, extra)]
     lens = np.zeros(runner.max_slots, np.int32)
     lens[0] = len(prompt)
     nxt = np.zeros(runner.max_slots, np.int32)
@@ -1630,31 +1746,11 @@ def generate_phase(args) -> dict:
     model = EngineModel(engine, max_new_tokens=GEN_NEW)
     engine.generate(["warm-up: cuBLAS and the kernels load"], max_new_tokens=2)
 
-    prefills, decodes = [], []
-    prefill, decode = runner.prefill_into_slot, runner.decode
-
-    def timed_prefill(tokens, slot):
-        t = time.perf_counter()
-        out = prefill(tokens, slot)          # returns numpy: the step has ended
-        prefills.append((len(tokens), time.perf_counter() - t))
-        assert np.isfinite(out).all()
-        return out
-
-    def timed_decode(tokens, lens):
-        active = sum(r is not None for r in RecordedScheduler.current.slot_req)
-        t = time.perf_counter()
-        out = decode(tokens, lens)
-        decodes.append((active, time.perf_counter() - t))
-        assert np.isfinite(out).all()
-        return out
-
-    runner.prefill_into_slot, runner.decode = timed_prefill, timed_decode
     stats0 = dataclasses.replace(engine.stats)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with recorded_runs() as runs:
-        for _, mod in _KERNELS:
-            mod.launches = 0
+    with recorded_runs() as runs, timed_steps(runner) as (prefills, decodes):
+        zero_launches()
         t0 = time.perf_counter()
         notes, st_map = sem_map(records, "a short note on {claim}", model)
         map_s = time.perf_counter() - t0
@@ -1663,9 +1759,8 @@ def generate_phase(args) -> dict:
         summary, st_agg = sem_agg_hierarchical(
             [{"note": n} for n in notes], "summarize {note}", model, fanout=8)
         agg_s = time.perf_counter() - t0
-        launches = {name: mod.launches for name, mod in _KERNELS}
+        launches = kernel_launches()
         n_prefill, n_decode, n_gen = check_runs(runs, [64, 8, 1])
-    del runner.prefill_into_slot, runner.decode      # the class's methods again
     peak = torch.cuda.max_memory_allocated() / 2**30
     stats = {k: getattr(engine.stats, k) - getattr(stats0, k)
              for k in ("lm_calls", "generated_tokens", "prompt_tokens")}
@@ -1697,8 +1792,8 @@ def generate_phase(args) -> dict:
     # one decode step at 32 active slots under the profiler
     toks = np.random.default_rng(args.seed).integers(0, 256, GEN_SLOTS).astype(np.int32)
     lens = np.full(GEN_SLOTS, 520, np.int32)
-    decode(toks, lens)
-    wall, recs = profiled(lambda: decode(toks, lens))
+    runner.decode(toks, lens)
+    wall, recs = profiled(lambda: runner.decode(toks, lens))
     dev = sorted(((e.self_device_time_total / 1e3, e.key, e.count) for e in recs),
                  reverse=True)
     busy = sum(ms for ms, _, _ in dev)
@@ -1747,17 +1842,33 @@ def _chunked_attend(q, k, v, mask, block: int = 128):
     return (o / l.clamp(min=1e-30).transpose(1, 2)[..., None]).to(v.dtype)
 
 
+def cut_depth(params: dict, depth: dict[str, int]) -> dict:
+    """``params`` with each stack named in ``depth`` cut to its first
+    ``depth[stack]`` layers (views, no copy)."""
+    def cut(tree, n):
+        return {k: cut(v, n) if isinstance(v, dict) else v[:n] for k, v in tree.items()}
+    return {**params, **{stack: cut(params[stack], n) for stack, n in depth.items()}}
+
+
 @torch.inference_mode()
-def forced_decode(cfg, params, prompt: torch.Tensor, forced=None):
-    """Prefill ``prompt`` [B, T0] into a fresh cache, then 63 decode steps:
-    greedy when ``forced`` is None, else fed ``forced`` [B, 64].  ->
-    (log-probs [B, 64, V] f32, the tokens fed [B, 64])."""
+def forced_decode(cfg, params, prompt: torch.Tensor, forced=None, *, steps: int = GEN_NEW,
+                  extra=None, bucket: int = 0):
+    """Prefill ``prompt`` [B, T0] (with ``extra``, the VLM's images) into a
+    fresh cache, then ``steps - 1`` decode steps: greedy when ``forced`` is
+    None, else fed ``forced`` [B, steps].  With ``bucket`` the prompt is
+    padded with zeros to ``bucket`` positions, as the runner pads a prefill.
+    -> (log-probs [B, steps, V] f32, the tokens fed [B, steps])."""
     b, t0 = prompt.shape
-    cache = registry.init_cache(cfg, b, t0 + GEN_NEW, device=prompt.device)
-    logits, _ = registry.prefill(cfg, params, prompt, cache, last_only=True)
+    cache = registry.init_cache(cfg, b, max(bucket, t0 + steps), device=prompt.device)
+    if bucket:
+        padded = torch.nn.functional.pad(prompt, (0, bucket - t0))
+        logits, _ = registry.prefill(cfg, params, padded, cache, extra=extra)
+        logits = logits[:, :t0]
+    else:
+        logits, _ = registry.prefill(cfg, params, prompt, cache, extra=extra, last_only=True)
     lps = [torch.log_softmax(logits[:, -1].float(), dim=-1)]
     toks = [lps[-1].argmax(-1) if forced is None else forced[:, 0]]
-    for i in range(GEN_NEW - 1):
+    for i in range(steps - 1):
         logits, _ = registry.decode_step(cfg, params, toks[-1][:, None], cache, t0 + i)
         lps.append(torch.log_softmax(logits[:, 0].float(), dim=-1))
         toks.append(lps[-1].argmax(-1) if forced is None else forced[:, i + 1])
@@ -1794,9 +1905,7 @@ def generate_agreement(gen: dict) -> None:
     # f32, a few layers, 8 sequences
     n = min(GEN_F32_LAYERS, cfg.num_layers)
     cfg32 = cfg.with_(num_layers=n, dtype="float32")
-    p32 = {**params, "layers": {k: ({kk: vv[:n] for kk, vv in v.items()}
-                                    if isinstance(v, dict) else v[:n])
-                                for k, v in params["layers"].items()}}
+    p32 = cut_depth(params, {"layers": n})
     k32, toks32 = forced_decode(cfg32, p32, prompt[:8])
     f32_plain, _ = forced_decode(cfg32.with_(attn_impl="full"), p32, prompt[:8], toks32)
     d32 = float((k32 - f32_plain).abs().max())
@@ -2086,8 +2195,7 @@ def semframe_phase(args, smi: str) -> None:
         f"{temb.dim}); worlds made in {time.perf_counter() - t0:.2f} s")
     log(f"cut: the eager == lazy check joins the first {SF_EQUALITY_LABELS} of the "
         f"{SF_LABELS} labels (two gold joins on the host, no kernel)")
-    for _, mod in _KERNELS:
-        mod.launches = 0
+    zero_launches()
 
     labels = right[:SF_EQUALITY_LABELS]
     elog: list = []
@@ -2336,13 +2444,12 @@ def serving_phase(args, smi: str) -> dict:
                            for i in range(SERVE_SESSIONS))
             rows.extend(h.result(timeout=900) for h in handles)
 
-        for _, mod in _KERNELS:
-            mod.launches = 0
+        zero_launches()
         forwards[0] = 0
         torch.cuda.reset_peak_memory_stats()
         with recorded_runs() as runs, attention_kinds() as kinds:
             wall, busy, n_recs = device_busy(serve)
-        launches = {name: mod.launches for name, mod in _KERNELS}
+        launches = kernel_launches()
         snap = gw.snapshot()
         peak = torch.cuda.max_memory_allocated() / 2**30
         statuses = [h.status for h in handles]
@@ -2441,8 +2548,7 @@ def stream_phase(args, smi: str) -> dict:
         plan = (SemFrame(qrecs, sess).lazy()
                 .sem_sim_join(table.lazy(sess), "q", "text", k=K, index_kind="ivf",
                               quantize="none"))
-        for _, mod in _KERNELS:
-            mod.launches = 0
+        zero_launches()
         emissions, walls, embedded = [], [], []
         t0 = time.perf_counter()
         sub = gw.subscribe(plan)
@@ -2457,7 +2563,7 @@ def stream_phase(args, smi: str) -> dict:
             walls.append(time.perf_counter() - t0)
             emissions.append(em)
             embedded.append(len(emb.texts))
-        launches = {name: mod.launches for name, mod in _KERNELS}
+        launches = kernel_launches()
         snap = gw.snapshot()
         (index,) = gw.index_registry._indexes.values()
         log(f"stream: emissions at versions {[e.version for e in emissions]} in "
@@ -2558,6 +2664,480 @@ def cli_runs(smi: str) -> None:
                 f"repro_gateway_sessions_total "
                 f"{ {k: v for k, v in samples.items() if 'gateway_sessions' in k} }")
     log(f"serving CLI on {smi}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the transformer families at full width (MoE and VLM layouts)
+# ---------------------------------------------------------------------------
+
+MIXTRAL, MAVERICK, VISION = ("mixtral-8x22b", "llama4-maverick-400b-a17b",
+                             "llama-3.2-vision-11b")
+# Depth is the one cut: published widths and vocabularies, bf16, random
+# weights from --seed.  mixtral 8 of 56 layers (40.9 GB of weights);
+# maverick 2 of 48, one moe_interleave group (1 dense + 1 MoE layer of 128
+# experts with the shared expert, 37.1 GB); the VLM whole (40 self layers +
+# 8 cross blocks, 23.0 GB).  The whole mixtral (281 GB) and maverick do not
+# fit one 80 GB card.
+FAMILY_LAYERS = {MIXTRAL: 8, MAVERICK: 2, VISION: 40}
+# The f32 agreement runs over the first layers of the drawn weights: mixtral 2
+# layers, the VLM one group (5 self layers + 1 cross block).  Maverick's one
+# group would cast each 128-expert weight to f32 (21.5 GB a tensor) beside
+# its 37.1 GB: its f32 check is the small config's.
+FAMILY_F32_STACKS = {MIXTRAL: {"layers": 2}, VISION: {"layers": 5, "cross_layers": 1}}
+FAMILY_POSITIONS = 16   # teacher-forced positions of the agreement (prefill + 15 steps)
+FAMILY_NEW = 16         # new tokens of maverick's and the VLM's requests
+LONG_PROMPT_BYTES = 6000   # mixtral: prefill at bucket 8192, decode past the 4096 window
+# bf16 agreement of the kernel path with the plain path, teacher-forced: phase
+# 12's limit, set there between the kernel path's reading and two gross faults.
+# A router whose top choices nearly tie can pick another expert on the other
+# path's rounding, which moves that token by a whole expert's difference and is
+# no fault of an attention kernel: for the MoE configs the plain paths replay
+# the kernel path's expert choices (each layer's own probabilities give the
+# gates) and are held to the limits, and the distance of a plain path that
+# routes by itself is printed with the count of router choices that differ.
+FAMILY_BF16_LOGPROB_TOL = GEN_BF16_LOGPROB_TOL
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """The expert ids [B, S, k] of every MoE layer call, in call order, while
+    the block runs.  The patch holds because ``moe_ffn`` looks up the
+    module-level ``route`` at each call."""
+    ids, route = [], moe_mod.route
+
+    def recording(params, x, *, cfg):
+        out = route(params, x, cfg=cfg)
+        ids.append(out[3])
+        return out
+
+    moe_mod.route = recording
+    try:
+        yield ids
+    finally:
+        moe_mod.route = route
+
+
+@contextlib.contextmanager
+def replayed_routes(ids: list):
+    """Every MoE layer call takes the next experts of ``ids`` (another run's,
+    in call order) in place of its own top-k; its gates are its own
+    probabilities at those experts, renormalized as the router does.  As in
+    :func:`recorded_routes`, the patch holds because ``moe_ffn`` looks up the
+    module-level ``route`` at each call."""
+    calls, route = iter(ids), moe_mod.route
+
+    def replaying(params, x, *, cfg):
+        logits, probs = route(params, x, cfg=cfg)[:2]
+        idx = next(calls)
+        gates = probs.gather(-1, idx)
+        if cfg.experts_per_token > 1:
+            gates = gates / gates.sum(dim=-1, keepdim=True)
+        return (logits, probs, gates, idx) + moe_mod.assign_slots(idx, cfg=cfg)
+
+    moe_mod.route = replaying
+    try:
+        yield
+    finally:
+        moe_mod.route = route
+    assert next(calls, None) is None, "a replayed run made fewer MoE calls"
+
+
+def route_flips(a: list, b: list) -> tuple[int, int]:
+    """(router choices that differ, choices) between two runs' routes."""
+    assert len(a) == len(b), (len(a), len(b))
+    return (sum(int((x != y).sum()) for x, y in zip(a, b)),
+            sum(x.numel() for x in a))
+
+
+def family_engine(name: str, seed: int, *, max_slots: int, max_seq: int) -> InferenceEngine:
+    """The family's engine at its published widths and vocabulary, cut to
+    FAMILY_LAYERS, its bf16 weights drawn on the card from ``seed``."""
+    full = get_config(name)
+    cfg = full.with_(num_layers=FAMILY_LAYERS[name])
+    assert cfg.attn_impl == "auto"   # the shipped default: the kernels on the card
+    t0 = time.perf_counter()
+    engine = InferenceEngine(cfg, seed=seed, max_slots=max_slots, max_seq=max_seq)
+    torch.cuda.synchronize()
+    leaves = list(flatten(engine.runner.params).values())
+    cache = flatten(engine.runner.cache).values()
+    log(f"cut: {name} depth {full.num_layers} -> {cfg.num_layers} layers "
+        f"({transformer.layer_layout(cfg)})")
+    log(f"{name}: d {cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads}, hd {cfg.hd}, "
+        f"ff {cfg.d_ff}, vocab {cfg.vocab_size}, experts {cfg.num_experts} top "
+        f"{cfg.experts_per_token}, window {cfg.sliding_window}, {cfg.dtype}: "
+        f"{sum(t.numel() for t in leaves)} params "
+        f"({sum(t.numel() * t.element_size() for t in leaves) / 1e9:.1f} GB) drawn on the card "
+        f"in {time.perf_counter() - t0:.2f} s; {max_slots} slots x {max_seq} positions, "
+        f"KV cache {sum(t.numel() * t.element_size() for t in cache) / 2**30:.2f} GiB")
+    return engine
+
+
+def family_timings(name, runner, prefills, decodes, gen_tokens: int, run_s: float,
+                   seed: int) -> dict:
+    """Print the family's prefill ms at each bucket, the decode step at its
+    active slots, generated tokens/s and one decode step (all slots, as the
+    runner always steps) under the profiler."""
+    by_bucket: dict[int, list[float]] = {}
+    for n, dt in prefills:
+        by_bucket.setdefault(min(runner_mod._bucket(n), runner.max_seq), []).append(dt * 1e3)
+    by_active: dict[int, list[float]] = {}
+    for a, dt in decodes:
+        by_active.setdefault(a, []).append(dt * 1e3)
+    lens_v = min(520, runner.max_seq - 1)
+    toks = np.random.default_rng(seed).integers(0, 256, runner.max_slots).astype(np.int32)
+    lens = np.full(runner.max_slots, lens_v, np.int32)
+    runner.decode(toks, lens)
+    wall, recs = profiled(lambda: runner.decode(toks, lens))
+    busy = sum(e.self_device_time_total for e in recs) / 1e3
+    assert busy > 0, f"{name}: the profiler recorded no device time for the decode step"
+    attn = sum(e.self_device_time_total for e in recs if kda.KERNEL_PREFIX in e.key) / 1e3
+    assert attn > 0, f"{name}: the decode step's profile names no {kda.KERNEL_PREFIX}*"
+    out = {"prefill_ms": {b: statistics.median(v) for b, v in sorted(by_bucket.items())},
+           "decode_ms": {a: statistics.median(v) for a, v in sorted(by_active.items())},
+           "tokens_per_s": gen_tokens / run_s, "idle_share": 1 - busy / wall}
+    log(f"{name}: prefill ms by bucket (median, count) "
+        + ", ".join(f"{b}: {statistics.median(v):.2f} x{len(v)}"
+                    for b, v in sorted(by_bucket.items()))
+        + "; decode step ms by active slots (median, count) "
+        + ", ".join(f"{a}: {statistics.median(v):.2f} x{len(v)}"
+                    for a, v in sorted(by_active.items()))
+        + f"; {gen_tokens} generated tokens in {run_s:.2f} s ({out['tokens_per_s']:.1f} "
+        f"tokens/s); one decode step [{runner.max_slots} slots, lens {lens_v}] under the "
+        f"profiler: wall {wall:.2f} ms, device busy {busy:.3f} ms, idle share "
+        f"{out['idle_share']:.4f}, decode_attention {attn:.3f} ms")
+    return out
+
+
+def family_agreement(engine, prompt: torch.Tensor, extra=None, extra32=None) -> dict:
+    """The family's kernel path against its plain path (attn_impl="full") on
+    the card, teacher-forced along the kernel path's greedy tokens over
+    FAMILY_POSITIONS positions: bf16 at the phase's depth, with a second
+    correct plain path (the chunked online softmax) beside it, to
+    FAMILY_BF16_LOGPROB_TOL; f32 over FAMILY_F32_STACKS to
+    GEN_F32_LOGPROB_TOL.  For the MoE configs the plain paths replay the
+    kernel path's expert choices, and a plain path that routes by itself is
+    printed beside them with the router choices that differ."""
+    cfg, params = engine.cfg, engine.runner.params
+    name, steps = cfg.name, FAMILY_POSITIONS
+
+    def paths(cfg, params, prompt, extra, controls: bool) -> dict:
+        plain = cfg.with_(attn_impl="full")
+        n0 = (kda.launches, kfa.launches)
+        lp = {}
+        with recorded_routes() as routes:
+            lp["kernel"], toks = forced_decode(cfg, params, prompt, steps=steps, extra=extra)
+        assert (kda.launches - n0[0], kfa.launches - n0[1]) == \
+            (cfg.num_layers * (steps - 1), cfg.num_layers), name
+        runs = [("plain", None)] + ([("chunked plain", _chunked_attend)] if controls else [])
+        for path, attend in runs:
+            with contextlib.ExitStack() as stack:
+                if attend is not None:
+                    stack.enter_context(plain_attention(attend))
+                if cfg.is_moe:
+                    stack.enter_context(replayed_routes(routes))
+                lp[path], _ = forced_decode(plain, params, prompt, toks, steps=steps,
+                                            extra=extra)
+        dist = {path: float((lp[path] - lp["plain"]).abs().max()) for path in lp
+                if path != "plain"}
+        if cfg.is_moe:   # the plain path routing by itself
+            with recorded_routes() as own:
+                free, _ = forced_decode(plain, params, prompt, toks, steps=steps,
+                                        extra=extra)
+            dist["kernel, plain routing by itself"] = float((lp["kernel"] - free).abs().max())
+            dist["router choices that differ"], dist["router choices"] = \
+                route_flips(routes, own)
+        assert all(bool(torch.isfinite(v).all()) for v in lp.values()), name
+        return dist
+
+    out = {"bf16": paths(cfg, params, prompt, extra, True)}
+    log(f"{name} agreement, bf16, {cfg.num_layers} layers, {prompt.shape[0]} sequences of "
+        f"{prompt.shape[1]} tokens x {steps} positions, max abs log-prob distance from the "
+        f"plain path{' (which replays the kernel path' + chr(39) + 's experts)' if cfg.is_moe else ''}"
+        f" (limit {FAMILY_BF16_LOGPROB_TOL}): {out['bf16']}")
+    assert out["bf16"]["kernel"] <= FAMILY_BF16_LOGPROB_TOL and \
+        out["bf16"]["chunked plain"] <= FAMILY_BF16_LOGPROB_TOL, (name, out)
+    stacks = FAMILY_F32_STACKS.get(name)
+    if stacks:
+        cfg32 = cfg.with_(num_layers=stacks["layers"], dtype="float32")
+        out["f32"] = paths(cfg32, cut_depth(params, stacks), prompt, extra32, False)
+        log(f"{name} agreement, f32, {stacks} (tol {GEN_F32_LOGPROB_TOL}): {out['f32']}")
+        assert out["f32"]["kernel"] <= GEN_F32_LOGPROB_TOL, (name, out)
+    free_card()
+    return out
+
+
+def long_agreement(engine, prompt: np.ndarray) -> dict:
+    """The long prompt, one row, through the kernel path and the plain path,
+    teacher-forced along the kernel path's greedy tokens: the prefill padded
+    to its bucket as the runner pads it, then FAMILY_POSITIONS - 1 decode
+    steps at lens past the window.  The plain path is attn_impl="chunked":
+    the online softmax over KV blocks in prefill (it builds no S x S score
+    plane) and ``gqa_attend`` under the window mask in decode; it replays
+    the kernel path's experts.  The plain path without the window, a kernel
+    that ignored it, must land beyond the limit: the check tells a window
+    fault at these positions."""
+    cfg, params = engine.cfg, engine.runner.params
+    steps, t0 = FAMILY_POSITIONS, len(prompt)
+    bucket = min(runner_mod._bucket(t0), engine.runner.max_seq)
+    assert t0 > cfg.sliding_window > 0, (t0, cfg.sliding_window)
+    toks = torch.from_numpy(np.asarray(prompt, np.int64))[None].to(engine.runner.device)
+    n0 = (kda.launches, kfa.launches)
+    with recorded_routes() as routes:
+        lp, forced = forced_decode(cfg, params, toks, steps=steps, bucket=bucket)
+    n1 = (kda.launches, kfa.launches)
+    assert (n1[0] - n0[0], n1[1] - n0[1]) == (cfg.num_layers * (steps - 1), cfg.num_layers)
+    dist = {}
+    for path, plain in (("kernel", cfg.with_(attn_impl="chunked")),
+                        ("plain without the window",
+                         cfg.with_(attn_impl="chunked", sliding_window=0))):
+        with replayed_routes(routes):
+            other, _ = forced_decode(plain, params, toks, forced, steps=steps, bucket=bucket)
+        assert bool(torch.isfinite(other).all()), path
+        dist[path] = float((lp - other).abs().max())
+    assert (kda.launches, kfa.launches) == n1, "the plain path launched a kernel"
+    assert bool(torch.isfinite(lp).all())
+    log(f"{cfg.name} long prompt, bf16, {cfg.num_layers} layers: {t0} tokens prefilled at "
+        f"bucket {bucket}, {steps - 1} decode steps at lens {t0}..{t0 + steps - 2} under window "
+        f"{cfg.sliding_window}, teacher-forced; max abs log-prob distance of the kernel path "
+        f"from the chunked plain path replaying its experts {dist['kernel']:.4g} (limit "
+        f"{FAMILY_BF16_LOGPROB_TOL}); of the plain path without the window "
+        f"{dist['plain without the window']:.4g} (must exceed the limit)")
+    assert dist["kernel"] <= FAMILY_BF16_LOGPROB_TOL < dist["plain without the window"], dist
+    del lp, forced, routes
+    free_card()
+    return dist
+
+
+def agreement_prompts(seed: int, n: int = 8) -> torch.Tensor:
+    """``n`` oracle prompts cut to one length, as token ids on the card."""
+    toks = [TOKENIZER.encode(p) for p in oracle_prompts(n, seed)]
+    t0 = min(len(t) for t in toks)
+    return torch.tensor([t[:t0] for t in toks], dtype=torch.int64, device="cuda")
+
+
+def mixtral_run(args) -> dict:
+    """mixtral-8x22b (8 layers) as the oracle of EngineModel: predicate over
+    32 prompts, sem_map over 16 records (32 new tokens, 16 slots), one
+    prompt of about LONG_PROMPT_BYTES bytes through prefill (bucket 8192)
+    and 16 decode steps past the 4096 window, and teacher-forced through
+    the kernel path and the chunked plain path; paged against contiguous
+    decode; the kernel path against the plain path."""
+    t_start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    engine = family_engine(MIXTRAL, args.seed, max_slots=16, max_seq=8192)
+    cfg, runner = engine.cfg, engine.runner
+    model = EngineModel(engine, max_new_tokens=32)
+    engine.generate(["warm-up: cuBLAS and the kernels load"], max_new_tokens=2)
+    prompts = oracle_prompts(32, args.seed + 17)
+    records = [{"claim": p} for p in oracle_prompts(16, args.seed + 18)]
+    long_prompt = oracle_prompts(1, args.seed + 19, LONG_PROMPT_BYTES, LONG_PROMPT_BYTES)[0]
+    with recorded_runs() as runs, timed_steps(runner) as (prefills, decodes):
+        zero_launches()
+        t0 = time.perf_counter()
+        passes, scores = model.predicate(prompts)
+        pred_s = time.perf_counter() - t0
+        n_pred = kernel_launches()
+        t0 = time.perf_counter()
+        notes, _ = sem_map(records, "a short note on {claim}", model)
+        engine.generate([long_prompt], max_new_tokens=16)
+        run_s = time.perf_counter() - t0
+        launches = kernel_launches()
+        n_prefill, n_decode, n_gen = check_runs(runs, [16, 1])
+    assert passes.shape == (32,) and np.isfinite(scores).all()
+    assert len(notes) == 16 and all(isinstance(n, str) for n in notes)
+    long = runs[1][1][0]
+    assert len(long.tokens) > cfg.sliding_window + 1 and \
+        runs[1][0].decode_steps == len(long.out_tokens) - 1
+    assert n_pred["flash_attention"] == cfg.num_layers and n_pred["decode_attention"] == 0
+    assert launches["flash_attention"] == cfg.num_layers * (1 + n_prefill), launches
+    assert launches["decode_attention"] == cfg.num_layers * n_decode, (launches, n_decode)
+    log(f"{MIXTRAL}: predicate over 32 prompts {pred_s * 1e3:.1f} ms (one forward); sem_map "
+        f"over 16 records and the {len(long.tokens)}-token prompt ({len(long.out_tokens)} "
+        f"tokens past position {len(long.tokens)}, window {cfg.sliding_window}): {n_prefill} "
+        f"prefills, {n_decode} decode steps, launches {launches}")
+    out = family_timings(MIXTRAL, runner, prefills, decodes, n_gen, run_s, args.seed)
+    out["launches"] = launches
+    out["long_agreement"] = long_agreement(engine, long.tokens)
+    out["paged_launches"] = paged_phase({"engine": engine}, args.seed)
+    out["agreement"] = family_agreement(engine, agreement_prompts(args.seed + 20))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["wall_s"] = time.perf_counter() - t_start
+    log(f"{MIXTRAL}: peak memory {out['peak_gib']:.2f} GiB; wall {out['wall_s']:.1f} s")
+    del engine, runner, model
+    free_card()
+    return out
+
+
+def maverick_run(args) -> dict:
+    """llama4-maverick, one moe_interleave group: 8 requests generating
+    FAMILY_NEW tokens each; the kernel path against the plain path."""
+    t_start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    engine = family_engine(MAVERICK, args.seed, max_slots=8, max_seq=1024)
+    cfg, runner = engine.cfg, engine.runner
+    engine.generate(["warm-up: cuBLAS and the kernels load"], max_new_tokens=2)
+    prompts = oracle_prompts(8, args.seed + 21)
+    with recorded_runs() as runs, timed_steps(runner) as (prefills, decodes):
+        zero_launches()
+        t0 = time.perf_counter()
+        texts = engine.generate(prompts, max_new_tokens=FAMILY_NEW)
+        run_s = time.perf_counter() - t0
+        launches = kernel_launches()
+        n_prefill, n_decode, n_gen = check_runs(runs, [8])
+    assert len(texts) == 8 and all(isinstance(t, str) for t in texts)
+    assert launches["flash_attention"] == cfg.num_layers * n_prefill, launches
+    assert launches["decode_attention"] == cfg.num_layers * n_decode, (launches, n_decode)
+    log(f"{MAVERICK}: 8 requests x {FAMILY_NEW} new tokens: {n_prefill} prefills, {n_decode} "
+        f"decode steps, launches {launches}")
+    out = family_timings(MAVERICK, runner, prefills, decodes, n_gen, run_s, args.seed)
+    out["launches"] = launches
+    out["agreement"] = family_agreement(engine, agreement_prompts(args.seed + 22))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["wall_s"] = time.perf_counter() - t_start
+    log(f"{MAVERICK}: peak memory {out['peak_gib']:.2f} GiB; wall {out['wall_s']:.1f} s")
+    del engine, runner
+    free_card()
+    return out
+
+
+def images(cfg, n: int, seed: int, dtype=torch.bfloat16) -> torch.Tensor:
+    """``n`` image embeddings [n, num_image_tokens, d] drawn on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((n, cfg.num_image_tokens, cfg.d_model), generator=g,
+                       device="cuda").to(dtype)
+
+
+def set_cross_gates(params, value: float) -> None:
+    """The cross blocks' tanh gates are zeros at init, which makes every
+    cross block the identity: set them so that the image counts."""
+    for gate in ("attn_gate", "ffn_gate"):
+        params["cross_layers"][gate].fill_(value)
+
+
+def vision_run(args) -> dict:
+    """llama-3.2-vision-11b, whole: 8 requests through the scheduler, each
+    with its own image (extra["image_embeds"] [1, 4096, 4096] bf16); the
+    same prompt with two images gives two first logits; the kernel path
+    against the plain path."""
+    t_start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    engine = family_engine(VISION, args.seed, max_slots=8, max_seq=1024)
+    cfg, runner = engine.cfg, engine.runner
+    set_cross_gates(runner.params, 0.5)
+    imgs = images(cfg, 8, args.seed + 23)
+    prompts = [np.asarray(TOKENIZER.encode(p), np.int32)
+               for p in oracle_prompts(8, args.seed + 24)]
+    runner.prefill_into_slot(prompts[0][:16], 0, {"image_embeds": imgs[:1]})   # warm-up
+    with recorded_runs() as runs, timed_steps(runner) as (prefills, decodes):
+        zero_launches()
+        sched = RecordedScheduler(runner, sampler=engine.sampler)
+        for i, p in enumerate(prompts):
+            sched.submit(Request(rid=i, tokens=p, max_new_tokens=FAMILY_NEW,
+                                 stop_id=TOKENIZER.eos_id,
+                                 extra={"image_embeds": imgs[i:i + 1]}))
+        t0 = time.perf_counter()
+        sched.run_to_completion()
+        run_s = time.perf_counter() - t0
+        launches = kernel_launches()
+        n_prefill, n_decode, n_gen = check_runs(runs, [8])
+    assert launches["flash_attention"] == cfg.num_layers * n_prefill, launches
+    assert launches["decode_attention"] == cfg.num_layers * n_decode, (launches, n_decode)
+    a = runner.prefill_into_slot(prompts[0], 0, {"image_embeds": imgs[:1]})
+    b = runner.prefill_into_slot(prompts[0], 0, {"image_embeds": imgs[1:2]})
+    d_img = float(np.abs(a - b).max())
+    log(f"{VISION}: 8 requests x {FAMILY_NEW} new tokens, one image each: {n_prefill} "
+        f"prefills, {n_decode} decode steps, launches {launches} (the "
+        f"{transformer.layer_layout(cfg)['cross']} cross blocks launch none); one prompt, "
+        f"two images: first logits {d_img:.4g} apart")
+    assert d_img > 1e-3, d_img
+    out = family_timings(VISION, runner, prefills, decodes, n_gen, run_s, args.seed)
+    out["launches"] = launches
+    prompt = agreement_prompts(args.seed + 25)
+    b_ = prompt.shape[0]
+    out["agreement"] = family_agreement(
+        engine, prompt, {"image_embeds": images(cfg, b_, args.seed + 26)},
+        {"image_embeds": images(cfg, b_, args.seed + 26, torch.float32)})
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["wall_s"] = time.perf_counter() - t_start
+    log(f"{VISION}: peak memory {out['peak_gib']:.2f} GiB; wall {out['wall_s']:.1f} s")
+    del engine, runner, imgs
+    free_card()
+    return out
+
+
+def small_families_cuda_vs_cpu(seed: int) -> None:
+    """The three smoke configs (f32) generating on the card against the same
+    weights on the CPU, whose plain path the tests hold against JAX: 5
+    requests through 3 slots, 12 new tokens each (the VLM's each with its
+    own image); the tokens are identical (up to a near-tie the CPU's own
+    log-probs show), the card's tokens teacher-forced through both give
+    log-probs within 1e-5, and the kernels launch once a self-attention
+    layer a prefill or decode step."""
+    for name in (MIXTRAL, MAVERICK, VISION):
+        cfg = get_smoke(name)
+        gpu = InferenceEngine(cfg, seed=seed, max_slots=3, max_seq=64)
+        if cfg.family == "vlm":
+            set_cross_gates(gpu.runner.params, 0.5)
+        rng = np.random.default_rng(seed + 27)
+        toks = [rng.integers(1, cfg.vocab_size, int(rng.integers(3, 30))).astype(np.int32)
+                for _ in range(5)]
+        imgs = images(cfg, 5, seed + 28, torch.float32) if cfg.family == "vlm" else None
+
+        def run(runner):
+            with recorded_runs() as runs:
+                sched = RecordedScheduler(runner)
+                for i, t in enumerate(toks):
+                    extra = None if imgs is None else {"image_embeds": imgs[i:i + 1]}
+                    sched.submit(Request(rid=i, tokens=t, max_new_tokens=12, extra=extra))
+                sched.run_to_completion()
+                steps = check_runs(runs, [5])
+            return {r.rid: r for r in runs[0][1]}, steps
+
+        n0 = kernel_launches()
+        got, (n_pre, n_dec, _) = run(gpu.runner)
+        n1 = kernel_launches()
+        assert (n1["flash_attention"] - n0["flash_attention"],
+                n1["decode_attention"] - n0["decode_attention"]) == \
+            (cfg.num_layers * n_pre, cfg.num_layers * n_dec), (name, n0, n1)
+        repro_torch.set_device("cpu")
+        try:
+            cpu = ModelRunner(cfg, tree_to(gpu.runner.params, torch.device("cpu")),
+                              max_slots=3, max_seq=64)
+            want, _ = run(cpu)
+            err, parted = 0.0, []
+            for rid, r in got.items():
+                extra = None if imgs is None else {"image_embeds": imgs[rid:rid + 1]}
+                lg = teacher_forced(gpu.runner, r.tokens, r.out_tokens, extra)
+                lc = teacher_forced(cpu, r.tokens, r.out_tokens, extra)
+                err = max(err, float(np.abs(lg - lc).max()))
+                c = want[rid].out_tokens
+                if c != r.out_tokens:
+                    i = next(j for j, (x, y) in enumerate(zip(c, r.out_tokens)) if x != y)
+                    top2 = np.sort(lc[i])[-2:]
+                    assert c[:i] == r.out_tokens[:i] and top2[1] - top2[0] < NEAR_TIE, \
+                        (name, rid, i, top2)
+                    parted.append((rid, i, float(top2[1] - top2[0])))
+        finally:
+            repro_torch.set_device(None)
+        assert err <= 1e-5, (name, err)
+        log(f"small {name} ({cfg.num_layers} layers, d {cfg.d_model}, f32, 5 requests x 12 "
+            f"tokens): card tokens == CPU tokens except at near-ties {parted}; teacher-forced "
+            f"log-probs within {err:.3g}; {n_dec} decode steps")
+        del gpu
+
+
+def families_phase(args, smi: str) -> dict:
+    """Phase 17: the MoE and VLM layouts at full width, one family at a
+    time, each freed before the next."""
+    free_card()
+    small_families_cuda_vs_cpu(args.seed)
+    out = {}
+    for name, run in ((MIXTRAL, mixtral_run), (MAVERICK, maverick_run),
+                      (VISION, vision_run)):
+        out[name] = run(args)
+        free_card()
+        log(f"{name} on {smi}: {json.dumps(out[name])}")
+    return out
 
 
 def main() -> None:
@@ -2674,8 +3254,7 @@ def main() -> None:
 
     # 11. the generate path at full width, counted (earlier phases' engines
     # are freed first, so that its peak memory is its own)
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_card()
     gen = generate_phase(args)
     launches["decode_attention"] = gen["launches"]["decode_attention"]
     lap("11 generate path")
@@ -2695,17 +3274,19 @@ def main() -> None:
     lap("14 semframe")
 
     # 15. the serving gateway at full width over the oracle and the embedder
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_card()
     serving = {"15 serving": serving_phase(args, smi)}
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_card()
     lap("15 serving")
 
     # 16. a continuous query over a growing table, and the serving CLI
     serving["16 stream"] = stream_phase(args, smi)
     lap("16 stream and CLI")
     log(f"serving launches {json.dumps(serving)}")
+
+    # 17. the transformer's MoE and VLM layouts at full width
+    families_phase(args, smi)
+    lap("17 families")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"device: {smi}")

@@ -1,4 +1,4 @@
-"""Paged KV cache (vLLM's PagedAttention), dense family.
+"""Paged KV cache (vLLM's PagedAttention), dense and MoE layouts.
 
 The allocator is the reference's: a host-side free list of fixed-size
 pages and per-slot page tables, so variable-length requests never
@@ -7,10 +7,12 @@ head_dim] tensors; a decode step writes each row's new K/V into its page
 in place, gathers each row's pages into a [B, maxp * page_size, Hk, hd]
 cache and runs the same attention as the contiguous decode: on the card
 the ``decode_attention`` kernel, on the CPU the reference's ``gqa_attend``
-under the reference's mask (positions ``0..lens``, no sliding window).
-
-The reference also serves the MoE family here; that waits for
-``models/moe.py`` (ROADMAP item 10).
+under the reference's mask (positions ``0..lens``, no sliding window:
+for mixtral's 4096 window paged and contiguous decode part past position
+4096, as in the reference).  A MoE layer's FFN is ``moe_ffn`` plus the
+shared expert where the config has one.  Like the reference, it serves the
+layouts with one ``"self"`` cache (``dense``, ``moe``) and refuses the
+interleaved MoE and VLM layouts.
 """
 from __future__ import annotations
 
@@ -59,16 +61,12 @@ class PageAllocator:
         self.table = table
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError("moe paged decode waits for models/moe.py (ROADMAP item 10)")
-    transformer._require_dense(cfg)
-
-
 def init_pages(cfg: ModelConfig, num_pages: int, page_size: int):
-    """Zeroed pages on ``repro_torch.current_device()``."""
-    _require_dense(cfg)
-    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads, cfg.hd)
+    """Zeroed pages on ``repro_torch.current_device()``, one stack per
+    decoder layer of the layout's ``layers``."""
+    lay = transformer.layer_layout(cfg)
+    shape = (lay.get("dense") or lay.get("moe"), num_pages, page_size, cfg.num_kv_heads,
+             cfg.hd)
     return {name: torch.zeros(shape, dtype=cfg.activation_dtype, device=current_device())
             for name in ("k", "v")}
 
@@ -91,7 +89,11 @@ def paged_decode_step(cfg: ModelConfig, params, tokens, pages, table, lens):
     (tensors or numpy arrays).  The pages are written in place.
 
     Returns (logits [B,1,V] f32, pages)."""
-    _require_dense(cfg)
+    lay = transformer.layer_layout(cfg)
+    if lay["kind"] not in ("dense", "moe"):
+        raise ValueError(f"paged decode serves the dense and moe layouts, not "
+                         f"{lay['kind']} ({cfg.name})")
+    use_moe = lay["kind"] == "moe"
     dev = pages["k"].device
     tokens, table = _on(tokens, dev, torch.int64), _on(table, dev, torch.int64)
     lens = _on(lens, dev, torch.int32)
@@ -102,7 +104,7 @@ def paged_decode_step(cfg: ModelConfig, params, tokens, pages, table, lens):
     # clamped to its last entry, as a JAX gather clamps it
     page_of = table[bidx, (lens.long() // ps).clamp(0, table.shape[1] - 1)]
     off = lens.long() % ps
-    for i in range(cfg.num_layers):
+    for i in range(lay[lay["kind"]]):
         lp = transformer._layer(params["layers"], i)
         kp, vp = pages["k"][i], pages["v"][i]
         h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
@@ -114,5 +116,5 @@ def paged_decode_step(cfg: ModelConfig, params, tokens, pages, table, lens):
         o = attn.decode_attend(q, k, v, lens, window=0, cfg=cfg)
         x = x + attn.out_proj(lp["attn"], o)
         h = L.rmsnorm(lp["ffn_norm"], x, cfg.norm_eps)
-        x = x + L.swiglu(lp["ffn"], h)
+        x = x + transformer._ffn(lp, h, cfg=cfg, use_moe=use_moe)[0]
     return transformer._logits(params, x, cfg=cfg), pages

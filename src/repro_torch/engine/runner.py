@@ -65,23 +65,37 @@ class ModelRunner:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.asarray(a, np.int64)).to(self.device)
 
+    def _extra(self, extra: dict | None) -> dict | None:
+        """A request's ``extra`` inputs as tensors on the runner's device
+        (``None`` for none, as the reference's ``extra or None``)."""
+        if not extra:
+            return None
+        return {k: (v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v)))
+                .to(self.device) for k, v in extra.items()}
+
     # -- prefill one request into a slot --------------------------------
     @torch.inference_mode()
-    def prefill_into_slot(self, tokens: np.ndarray, slot: int) -> np.ndarray:
-        """tokens: [T] int32. Returns last-token logits [V] (f32).
+    def prefill_into_slot(self, tokens: np.ndarray, slot: int,
+                          extra: dict | None = None) -> np.ndarray:
+        """tokens: [T] int32; ``extra``: the request's other inputs (the
+        VLM's ``image_embeds`` [1, N, d]). Returns last-token logits [V] (f32).
 
-        The slot's cache is zeroed and its first ``bucket`` positions
-        written, as the reference writes a fresh one-row cache over it."""
+        The slot's rows of every cache entry are zeroed and its first
+        ``bucket`` positions written (the VLM's image K/V whole), as the
+        reference writes a fresh one-row cache over them."""
         t = int(tokens.shape[0])
         assert t <= self.max_seq, f"prompt {t} > max_seq {self.max_seq}"
         bucket = min(_bucket(t), self.max_seq)
         padded = np.zeros((1, bucket), np.int32)
         padded[0, :t] = tokens
-        row = {"self": {name: c[:, slot:slot + 1] for name, c in self.cache["self"].items()}}
+        row = {entry: {name: c[:, slot:slot + 1] for name, c in kv.items()}
+               for entry, kv in self.cache.items()}
         with _device_faults():
-            for c in row["self"].values():
-                c.zero_()
-            logits, _ = registry.prefill(self.cfg, self.params, self._tensor(padded), row)
+            for kv in row.values():
+                for c in kv.values():
+                    c.zero_()
+            logits, _ = registry.prefill(self.cfg, self.params, self._tensor(padded), row,
+                                         extra=self._extra(extra))
             return logits[0, t - 1].float().cpu().numpy()
 
     # -- one decode step over all slots ----------------------------------
@@ -97,7 +111,8 @@ class ModelRunner:
 
     # -- whole-sequence scoring (no cache) -------------------------------
     @torch.inference_mode()
-    def logprobs(self, tokens: np.ndarray) -> np.ndarray:
+    def logprobs(self, tokens: np.ndarray, extra: dict | None = None) -> np.ndarray:
         """tokens: [B,T] -> log-probs [B,T,V] (teacher-forced), f32."""
-        logits, _ = registry.forward(self.cfg, self.params, self._tensor(tokens))
+        logits, _ = registry.forward(self.cfg, self.params, self._tensor(tokens),
+                                     extra=self._extra(extra))
         return torch.log_softmax(logits.float(), dim=-1).cpu().numpy()

@@ -37,6 +37,7 @@ class Request:
     tokens: np.ndarray                  # prompt token ids [T]
     max_new_tokens: int = 32
     stop_id: int | None = None
+    extra: dict | None = None           # other inputs (the VLM's image_embeds)
     deadline_s: float | None = None     # wall-clock budget (straggler guard)
     # runtime state
     out_tokens: list = dataclasses.field(default_factory=list)
@@ -118,7 +119,7 @@ class ContinuousBatchScheduler:
             req.started_at = time.monotonic()
             try:
                 self.fault_hook()
-                logits = self.runner.prefill_into_slot(req.tokens, slot)
+                logits = self.runner.prefill_into_slot(req.tokens, slot, req.extra)
             except RuntimeError:
                 self._requeue_or_fail(req)
                 return True

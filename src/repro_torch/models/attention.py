@@ -8,8 +8,9 @@ the hand-written CUDA kernel here, reached through ``ops.flash_attention``.
 activations on the CPU it keeps the reference's rule: ``"chunked"`` past
 ``8 * attn_q_chunk`` positions, else ``"full"``.  The decode step against a
 KV cache (:func:`decode_self_attention`) follows the same rule with the
-``decode_attention`` kernel.  Cross attention arrives with the families
-that use it (ROADMAP item 10).
+``decode_attention`` kernel.  Cross attention (the VLM's image blocks)
+is the reference's plain ``gqa_attend`` in both forms, as no Pallas kernel
+computes it there.
 """
 from __future__ import annotations
 
@@ -42,16 +43,18 @@ def attention_spec(cfg: ModelConfig, *, cross: bool = False) -> dict:
     return specs
 
 
-def project_qkv(params, x, *, cfg: ModelConfig, positions=None):
-    """Project hidden states to (q, k, v) [B,S,H|Hk,hd], RoPE applied."""
+def project_qkv(params, x, mem=None, *, cfg: ModelConfig, positions=None):
+    """Project hidden states to (q, k, v) [B,S,H|Hk,hd].  ``mem`` (cross
+    attention) supplies k/v; RoPE applies only to self-attention."""
+    src = x if mem is None else mem
     q = einsum("bsd,dhk->bshk", x, params["wq"])
-    k = einsum("bsd,dhk->bshk", x, params["wk"])
-    v = einsum("bsd,dhk->bshk", x, params["wv"])
+    k = einsum("bsd,dhk->bshk", src, params["wk"])
+    v = einsum("bsd,dhk->bshk", src, params["wv"])
     if "bq" in params:
         q = q + params["bq"].to(q.dtype)
         k = k + params["bk"].to(k.dtype)
         v = v + params["bv"].to(v.dtype)
-    if positions is not None:
+    if positions is not None and mem is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -175,6 +178,16 @@ def _kv_chunked_attention(q, k, v, *, cfg: ModelConfig, causal: bool):
     return o.to(q.dtype)
 
 
+def cross_attention(params, x, mem, *, cfg: ModelConfig):
+    """Cross-attention to a memory (image patches): every query sees every
+    memory position.  The reference's ``mem_valid`` argument is left out:
+    no caller passes it, and its mask does not broadcast (ROADMAP §3)."""
+    q, k, v = project_qkv(params, x, mem, cfg=cfg)
+    mask = torch.ones((1, 1, x.shape[1], mem.shape[1]), dtype=torch.bool, device=x.device)
+    out = gqa_attend(q, k, v, mask)
+    return out_proj(params, out)
+
+
 # ---------------------------------------------------------------------------
 # Decode-step attention against a KV cache
 # ---------------------------------------------------------------------------
@@ -221,3 +234,13 @@ def decode_attend(q, k, v, lens, *, window: int, cfg: ModelConfig):
     if window:
         k_valid = k_valid & (lens[:, None] - k_pos[None, :] < window)
     return gqa_attend(q, k, v, k_valid[:, None, None, :])
+
+
+def decode_cross_attention(params, x, k_mem, v_mem, *, cfg: ModelConfig):
+    """Cross-attn during decode with precomputed memory K/V: [B,Sm,Hk,hd]."""
+    q = einsum("bsd,dhk->bshk", x, params["wq"])
+    if "bq" in params:
+        q = q + params["bq"].to(q.dtype)
+    mask = torch.ones((1, 1, 1, k_mem.shape[1]), dtype=torch.bool, device=x.device)
+    out = gqa_attend(q, k_mem, v_mem, mask)
+    return out_proj(params, out)

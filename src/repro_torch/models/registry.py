@@ -2,14 +2,16 @@
 
     param_specs(cfg)                                  -> SpecTree
     init_params(cfg, generator)                       -> params on the generator's device
-    forward(cfg, params, tokens)                      -> (logits, aux)
+    forward(cfg, params, tokens, extra=...)           -> (logits, aux)
     cache_specs(cfg, batch, max_seq)                  -> SpecTree
     init_cache(cfg, batch, max_seq)                   -> zeroed KV cache
-    prefill(cfg, params, tokens, cache)               -> (logits, cache)
-    decode_step(cfg, params, tokens, cache, cache_len) -> (logits, cache)
+    prefill(cfg, params, tokens, cache, extra=...)    -> (logits, cache)
+    decode_step(cfg, params, tokens, cache, cache_len, extra=...) -> (logits, cache)
 
-Only the ``dense`` family is ported; every other family raises (ROADMAP
-item 10).
+``extra`` carries a request's other inputs (the VLM's
+``{"image_embeds": [B, num_image_tokens, d]}``).  The ``dense``, ``moe``
+and ``vlm`` families are ported (``models/transformer.py``); ``audio``,
+``ssm`` and ``hybrid`` raise (ROADMAP item 10).
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import current_device
 from repro_torch.models import transformer
 
-_FAMILY = {"dense": transformer}
+_FAMILY = {"dense": transformer, "moe": transformer, "vlm": transformer}
 
 
 def module_for(cfg: ModelConfig):
@@ -38,8 +40,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
     return _init(param_specs(cfg), generator)
 
 
-def forward(cfg: ModelConfig, params, tokens: torch.Tensor):
-    return module_for(cfg).forward(params, tokens, cfg=cfg)
+def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *, extra=None):
+    return module_for(cfg).forward(params, tokens, cfg=cfg, extra=extra)
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> SpecTree:
@@ -54,9 +56,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *, device=None) -> di
                       for p, s in specs.items()})
 
 
-def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache, *, last_only=False):
-    return module_for(cfg).prefill(params, tokens, cache, cfg=cfg, last_only=last_only)
+def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache, *, extra=None,
+            last_only=False):
+    return module_for(cfg).prefill(params, tokens, cache, cfg=cfg, extra=extra,
+                                   last_only=last_only)
 
 
-def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, cache, cache_len):
-    return module_for(cfg).decode_step(params, tokens, cache, cache_len, cfg=cfg)
+def decode_step(cfg: ModelConfig, params, tokens: torch.Tensor, cache, cache_len, *,
+                extra=None):
+    return module_for(cfg).decode_step(params, tokens, cache, cache_len, cfg=cfg,
+                                       extra=extra)

@@ -455,9 +455,17 @@ def test_paged_decode_matches_contiguous_and_reference():
 
 
 def test_paged_decode_refuses_moe():
-    cfg = tget_smoke("mixtral-8x22b")
-    with pytest.raises(NotImplementedError, match="moe paged decode"):
-        tpaged.init_pages(cfg, 4, 4)
+    """Paged decode serves the layouts with one ``self`` cache (dense and
+    moe, as the reference's assert allows; ``tests/test_torch_families.py``
+    holds the moe one to the reference); the interleaved MoE layout and the
+    VLM are refused."""
+    for name in ("llama4-maverick-400b-a17b", "llama-3.2-vision-11b"):
+        cfg = tget_smoke(name)
+        params = treg.init_params(cfg, torch.Generator().manual_seed(0))
+        pages = tpaged.init_pages(cfg, 4, 4)
+        with pytest.raises(ValueError, match="dense and moe layouts"):
+            tpaged.paged_decode_step(cfg, params, np.zeros((1, 1)), pages,
+                                     np.zeros((1, 4), np.int32), np.zeros(1))
 
 
 def test_page_allocator_release_reuse():

@@ -5,8 +5,8 @@ port and drives retrieval, the LLM oracle (predicate, LLM rerank), the
 generate path (``EngineModel.generate``, ``sem_map``, ``sem_agg``, a paged
 decode step), a lazy ``SemFrame`` pipeline through the plan layer
 (filter -> join -> topk, optimized and collected), a ``Gateway`` session, a
-``Subscription`` over a ``CorpusTable`` with one append and an ``Embedder``
-forward on the CPU."""
+``Subscription`` over a ``CorpusTable`` with one append, an ``Embedder``
+forward, a smoke mixtral forward (MoE) and a VLM decode step on the CPU."""
 import os
 import re
 import subprocess
@@ -104,6 +104,21 @@ _GUARDED = textwrap.dedent("""
     vecs = Embedder(E5_SMALL.with_(num_layers=2, d_model=64, num_heads=4, num_kv_heads=4,
                                    d_ff=128)).embed(["a claim", "another, longer claim"])
     assert vecs.shape == (2, 64) and np.allclose(np.linalg.norm(vecs, axis=1), 1.0, atol=1e-5)
+    import torch
+    from repro_torch.models import registry
+    moe_cfg = get_smoke("mixtral-8x22b")
+    moe_params = registry.init_params(moe_cfg, torch.Generator().manual_seed(0))
+    logits, aux = registry.forward(moe_cfg, moe_params, torch.zeros((2, 12), dtype=torch.long))
+    assert logits.shape == (2, 12, moe_cfg.vocab_size) and sorted(aux) == ["moe_lb", "moe_z"]
+    vlm_cfg = get_smoke("llama-3.2-vision-11b")
+    vlm_params = registry.init_params(vlm_cfg, torch.Generator().manual_seed(0))
+    image = {"image_embeds": torch.randn(1, vlm_cfg.num_image_tokens, vlm_cfg.d_model)}
+    cache = registry.init_cache(vlm_cfg, 1, 16)
+    registry.prefill(vlm_cfg, vlm_params, torch.ones((1, 5), dtype=torch.long), cache,
+                     extra=image)
+    logits, _ = registry.decode_step(vlm_cfg, vlm_params, torch.ones((1, 1), dtype=torch.long),
+                                     cache, 5)
+    assert logits.shape == (1, 1, vlm_cfg.vocab_size) and bool(torch.isfinite(logits).all())
     assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro") for m in sys.modules)
     print("modules", len(names))
 """)
@@ -115,7 +130,7 @@ def test_port_imports_and_runs_with_jax_and_repro_refused():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
     n = int(out.stdout.split("modules")[-1])
-    assert n >= 87          # every module of slices 1, 2a-2c, the plan and serving layers
+    assert n >= 88          # every module of slices 1, 2a-2c, the plan and serving layers, moe
 
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|repro)(?:[.\s,]|$)", re.M)
