@@ -12,7 +12,9 @@ for mixtral's 4096 window paged and contiguous decode part past position
 4096, as in the reference).  A MoE layer's FFN is ``moe_ffn`` plus the
 shared expert where the config has one.  Like the reference, it serves the
 layouts with one ``"self"`` cache (``dense``, ``moe``) and refuses the
-interleaved MoE and VLM layouts.
+interleaved MoE and VLM layouts and the families that are no decoder-only
+transformer (``audio``, ``ssm``, ``hybrid``), by name: ``layer_layout``
+calls any family it does not group ``"dense"``.
 """
 from __future__ import annotations
 
@@ -89,6 +91,9 @@ def paged_decode_step(cfg: ModelConfig, params, tokens, pages, table, lens):
     (tensors or numpy arrays).  The pages are written in place.
 
     Returns (logits [B,1,V] f32, pages)."""
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise ValueError(f"paged decode serves the dense and moe layouts of the "
+                         f"transformer, not the {cfg.family} family ({cfg.name})")
     lay = transformer.layer_layout(cfg)
     if lay["kind"] not in ("dense", "moe"):
         raise ValueError(f"paged decode serves the dense and moe layouts, not "

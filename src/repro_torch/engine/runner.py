@@ -7,6 +7,12 @@ over the whole slot batch with per-slot cache lengths.  PyTorch runs
 eagerly, so there is nothing to compile, and the cache is written in
 place: a prefill writes its slot, a decode step one position per slot.
 
+The recurrent families (``registry.RECURRENT``: ``ssm``, ``hybrid``) are
+prefilled at the prompt's true length, a departure from the reference
+(ROADMAP §3): their cache is the state after the prefill's last token, so
+the reference's pad tokens enter the state that decode continues from.
+Eager torch has no compilation for a bucket to bound.
+
 A fault of the device inside a step (an illegal address in a kernel, a
 failed launch inside torch) surfaces as a torch ``RuntimeError`` at the
 step's copy to the host, and leaves the CUDA context unusable, so a retry
@@ -78,14 +84,16 @@ class ModelRunner:
     def prefill_into_slot(self, tokens: np.ndarray, slot: int,
                           extra: dict | None = None) -> np.ndarray:
         """tokens: [T] int32; ``extra``: the request's other inputs (the
-        VLM's ``image_embeds`` [1, N, d]). Returns last-token logits [V] (f32).
+        VLM's ``image_embeds`` [1, N, d], whisper's ``audio_frames``
+        [1, T_frames, d]). Returns last-token logits [V] (f32).
 
-        The slot's rows of every cache entry are zeroed and its first
-        ``bucket`` positions written (the VLM's image K/V whole), as the
-        reference writes a fresh one-row cache over them."""
+        The slot's rows of every cache entry are zeroed and written by the
+        prefill in place: its first ``bucket`` positions (the cross K/V
+        whole), as the reference writes a fresh one-row cache over them;
+        a recurrent family's states after token ``T - 1``."""
         t = int(tokens.shape[0])
         assert t <= self.max_seq, f"prompt {t} > max_seq {self.max_seq}"
-        bucket = min(_bucket(t), self.max_seq)
+        bucket = t if self.cfg.family in registry.RECURRENT else min(_bucket(t), self.max_seq)
         padded = np.zeros((1, bucket), np.int32)
         padded[0, :t] = tokens
         row = {entry: {name: c[:, slot:slot + 1] for name, c in kv.items()}

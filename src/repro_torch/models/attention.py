@@ -8,7 +8,7 @@ the hand-written CUDA kernel here, reached through ``ops.flash_attention``.
 activations on the CPU it keeps the reference's rule: ``"chunked"`` past
 ``8 * attn_q_chunk`` positions, else ``"full"``.  The decode step against a
 KV cache (:func:`decode_self_attention`) follows the same rule with the
-``decode_attention`` kernel.  Cross attention (the VLM's image blocks)
+``decode_attention`` kernel.  Cross attention (the VLM's image blocks, whisper's decoder)
 is the reference's plain ``gqa_attend`` in both forms, as no Pallas kernel
 computes it there.
 """

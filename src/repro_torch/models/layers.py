@@ -5,8 +5,8 @@ raises on mixed dtypes, so :func:`einsum` casts its operands to their
 promoted dtype first (parameters are stored in bf16 whatever ``cfg.dtype``
 is, and bf16 -> f32 is exact).  :func:`einsum_f32` is the reference's
 ``preferred_element_type=f32``: bf16 products are exact in f32, summed in
-f32.  The LayerNorm and GELU blocks serve the encoder-decoder family and
-arrive with it (ROADMAP item 10).
+f32.  LayerNorm and the GELU FFN serve the encoder-decoder family
+(whisper); their statistics and activations are f32, as the reference's.
 """
 from __future__ import annotations
 
@@ -43,6 +43,22 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return rmsnorm_ref(x, params["scale"], eps=eps)
 
 
+def layernorm_spec(d: int) -> dict:
+    return {
+        ("scale",): ParamSpec((d,), ("embed",), init="ones", dtype=torch.float32),
+        ("bias",): ParamSpec((d,), ("embed",), init="zeros", dtype=torch.float32),
+    }
+
+
+def layernorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, unbiased=False)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * params["scale"] + params["bias"]).to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings (half-split form)
 # ---------------------------------------------------------------------------
@@ -66,7 +82,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 # ---------------------------------------------------------------------------
-# FFN (SwiGLU for the llama family)
+# FFN (SwiGLU for the llama family, GELU for whisper)
 # ---------------------------------------------------------------------------
 
 
@@ -83,6 +99,22 @@ def swiglu(params, x: torch.Tensor) -> torch.Tensor:
     u = einsum("bsd,df->bsf", x, params["w_up"])
     h = F.silu(g.float()).to(x.dtype) * u
     return einsum("bsf,fd->bsd", h, params["w_down"])
+
+
+def gelu_ffn_spec(d: int, d_ff: int) -> dict:
+    return {
+        ("w_in",): ParamSpec((d, d_ff), ("embed_in", "mlp_out"), init="scaled"),
+        ("b_in",): ParamSpec((d_ff,), ("mlp",), init="zeros", dtype=torch.float32),
+        ("w_out",): ParamSpec((d_ff, d), ("mlp", "embed_out"), init="scaled"),
+        ("b_out",): ParamSpec((d,), ("embed",), init="zeros", dtype=torch.float32),
+    }
+
+
+def gelu_ffn(params, x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default is the tanh approximation."""
+    h = einsum("bsd,df->bsf", x, params["w_in"]) + params["b_in"].to(x.dtype)
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return einsum("bsf,fd->bsd", h, params["w_out"]) + params["b_out"].to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

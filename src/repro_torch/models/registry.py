@@ -9,9 +9,14 @@
     decode_step(cfg, params, tokens, cache, cache_len, extra=...) -> (logits, cache)
 
 ``extra`` carries a request's other inputs (the VLM's
-``{"image_embeds": [B, num_image_tokens, d]}``).  The ``dense``, ``moe``
-and ``vlm`` families are ported (``models/transformer.py``); ``audio``,
-``ssm`` and ``hybrid`` raise (ROADMAP item 10).
+``{"image_embeds": [B, num_image_tokens, d]}``, whisper's
+``{"audio_frames": [B, num_audio_frames, d]}``).  Every family of the
+reference is served: ``dense``, ``moe`` and ``vlm`` by
+``models/transformer.py``, ``audio`` by ``models/encdec.py``, ``ssm`` by
+``models/xlstm_lm.py`` and ``hybrid`` by ``models/hybrid.py``.  Each writes
+the cache it is given in place and returns it.  The ``ssm`` and ``hybrid``
+caches are recurrent states, which a prefill leaves after its last token:
+the engine prefills them at a prompt's true length (``RECURRENT``).
 """
 from __future__ import annotations
 
@@ -20,15 +25,21 @@ import torch
 from repro_torch.common import SpecTree, init_params as _init, unflatten
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import current_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, hybrid, transformer, xlstm_lm
 
-_FAMILY = {"dense": transformer, "moe": transformer, "vlm": transformer}
+_FAMILY = {
+    "dense": transformer,
+    "moe": transformer,
+    "vlm": transformer,
+    "audio": encdec,
+    "ssm": xlstm_lm,
+    "hybrid": hybrid,
+}
+# families whose cache is a recurrent state: a pad token would enter it
+RECURRENT = frozenset({"ssm", "hybrid"})
 
 
 def module_for(cfg: ModelConfig):
-    if cfg.family not in _FAMILY:
-        raise NotImplementedError(
-            f"the {cfg.family} family ({cfg.name}) is not ported yet (ROADMAP item 10)")
     return _FAMILY[cfg.family]
 
 

@@ -208,6 +208,17 @@ def _layer(tree: dict, i: int) -> dict:
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
+def _set_layer(tree: dict, i: int, values: dict) -> None:
+    """Write ``values`` (a tree of one layer's tensors) into layer ``i`` of a
+    tree stacked over layers, in place and in the stack's dtypes: the port's
+    ``_write_prefill`` and the reference's restacking of scanned states."""
+    for k, v in values.items():
+        if isinstance(v, dict):
+            _set_layer(tree[k], i, v)
+        else:
+            tree[k][i] = v
+
+
 def _add_aux(acc, aux):
     return {k: acc.get(k, 0.0) + v for k, v in aux.items()} if aux else acc
 

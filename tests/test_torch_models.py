@@ -74,12 +74,6 @@ def test_dense_param_specs_are_the_references(name):
     assert tcommon.param_bytes(ts) == jcommon.param_bytes(js)
 
 
-@pytest.mark.parametrize("name", ["xlstm-125m", "whisper-small", "zamba2-7b"])
-def test_unported_families_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        treg.param_specs(tconfigs.get_smoke(name))
-
-
 # ---------------------------------------------------------------------------
 # the weight bridge and init
 # ---------------------------------------------------------------------------
