@@ -254,6 +254,36 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 and one shared application).  Prefill ms by length (by
                 bucket for whisper), the decode step by active slots,
                 tokens/s, one decode step under the profiler (idle share).
+ 19. training at full width — first the ``flash_attention`` backward
+                kernel against its plain version (autograd through the
+                contract) at the training shape (q [2,512,24,128], k/v
+                [2,512,8,128], bf16 and f32, causal) and at ragged edges (Sq
+                and Sk no multiple of 64, a window, rows no key may see, H/Hk
+                8 with hd 100, hd 64, misaligned rows): f32 within
+                BWD_F32_TOL, bf16 within BWD_BF16_TOL, two calls bit for bit;
+                a second correct backward written out in f32 within the bf16
+                limit and two gross faults (D omitted, the GQA group sum
+                dropped) beyond it; timed beside SDPA's backward and the
+                bound.  Then llama3.2-3b at its catalog config (28 layers,
+                d 3072, 24/8 heads, vocab 128256, bf16 params, remat,
+                random weights from ``--seed``), the default AdamW (f32
+                master and moments): the first step's loss, gradient norm
+                and wq/wk/wv gradients through the kernel pair against the
+                plain path (``attn_impl="full"``) on the card, beside a
+                second correct plain path (``"chunked"``) and a kernel path
+                whose attention output is detached (it must fail); one train
+                step under the profiler (idle share, busy time by kernel
+                family); then ``loop.run`` over ``SyntheticSource(seed)``: 3
+                steps of 4 x 512 tokens in 2 microbatches, launch counters
+                set to 0 around it: ``flash_attention`` 28 x 2 x 2 and its
+                backward 28 x 2 a step; loss finite, weights moved; step
+                time, tokens/s and peak memory.  Its 45 GB checkpoint (params,
+                master weights, moments) is not written (the loop's saver
+                records the save instead).  At 4
+                of 28 layers (reduced): ``compress_grads`` (int8, error
+                feedback), and a run checkpointed at step 2 (restored bit
+                for bit) and resumed to step 3 against the same steps run
+                straight (RESUME_TOL).
 
 Phases 15 and 16's launch counts are printed on a line of their own,
 ``serving launches {...}``, and each family of phases 17 and 18 its numbers
@@ -274,6 +304,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -320,6 +351,11 @@ from repro_torch.kernels import rmsnorm as krn  # noqa: E402
 from repro_torch.kernels import similarity as ksim  # noqa: E402
 from repro_torch.models import attention, layers, registry, transformer  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.checkpoint import checkpoint as ckpt  # noqa: E402
+from repro_torch.data.pipeline import SyntheticSource, packed_batch  # noqa: E402
+from repro_torch.train import grad_compress, loop as train_loop  # noqa: E402
+from repro_torch.train import optimizer as opt  # noqa: E402
+from repro_torch.train import trainstep  # noqa: E402
 from repro_torch.obs import parse_exposition, trace  # noqa: E402
 from repro_torch.serve import Gateway  # noqa: E402
 from repro_torch.stream import CorpusTable  # noqa: E402
@@ -344,8 +380,11 @@ PEAKS = {"H100 SXM": (3.35e12, 67e12, 989e12), "H100 PCIe": (2.0e12, 51e12, 756e
          "H100 NVL": (3.9e12, 60e12, 835e12)}
 
 _RETRIEVAL = (("similarity", ksim), ("cluster_scan", kivf), ("cluster_scan_q", kivfq))
-_KERNELS = _RETRIEVAL + (("flash_attention", kfa), ("rmsnorm", krn),
-                         ("decode_attention", kda))
+# every kernel: (name, its wrapper's module, the module's launch counter)
+_KERNELS = tuple((n, m, "launches") for n, m in _RETRIEVAL) + (
+    ("flash_attention", kfa, "launches"), ("rmsnorm", krn, "launches"),
+    ("decode_attention", kda, "launches"),
+    ("flash_attention_bwd", kfa, "backward_launches"))
 _SOURCES = {"similarity": ("src/repro_torch/kernels/csrc/similarity.cu",
                            "src/repro/kernels/similarity.py:45"),
             "cluster_scan": ("src/repro_torch/kernels/csrc/ivf_scan.cu",
@@ -357,7 +396,10 @@ _SOURCES = {"similarity": ("src/repro_torch/kernels/csrc/similarity.cu",
             "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                         "src/repro/kernels/rmsnorm.py:22"),
             "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
-                                 "src/repro/kernels/decode_attention.py:55")}
+                                 "src/repro/kernels/decode_attention.py:55"),
+            # the gradient of flash_attention, which the Pallas kernel lacks
+            "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                                    "src/repro/kernels/flash_attention.py:64")}
 
 ORACLE = "llama3.2-3b"
 ROUNDS = 5   # kernel / library timings in turns, for every kernel's row
@@ -445,13 +487,13 @@ def lap(phase: str) -> None:
 
 def kernel_launches() -> dict:
     """Every kernel's launch count."""
-    return {name: mod.launches for name, mod in _KERNELS}
+    return {name: getattr(mod, attr) for name, mod, attr in _KERNELS}
 
 
 def zero_launches() -> None:
     """Set every kernel's launch count to 0."""
-    for _, mod in _KERNELS:
-        mod.launches = 0
+    for _, mod, attr in _KERNELS:
+        setattr(mod, attr, 0)
 
 
 def free_card() -> None:
@@ -551,13 +593,15 @@ def profiled(fn, tries: int = 3) -> tuple[float, list]:
     return wall, []
 
 
-def interleaved_ms(kernel, library, reps: int) -> tuple[float, float, list[float]]:
+def interleaved_ms(kernel, library, reps: int) -> tuple[float, float, list[float], str]:
     """``device_ms`` of ``kernel`` and of ``library`` in turns over ROUNDS
     rounds, so that a drift of the card's clocks reaches both: -> (median
-    kernel ms, median library ms, the ratio of each round).  A round in
-    which the profiler kept no record of either side is left out of the
-    medians and ratios and reported; with no round left this fails, so both
-    times are always the profiler's device time."""
+    kernel ms, median library ms, the ratio of each round, the clock).  A
+    round in which the profiler kept no record of either side is left out
+    of the medians and ratios and reported.  With no round left (deep into
+    the run the profiler can stop keeping records altogether) both sides
+    are timed again in turns by CUDA events, host launch gaps included,
+    and the clock says "events"."""
     ks, ls = [], []
     for r in range(ROUNDS):
         a, b = device_ms(kernel, reps), device_ms(library, reps)
@@ -567,8 +611,15 @@ def interleaved_ms(kernel, library, reps: int) -> tuple[float, float, list[float
             continue
         ks.append(a)
         ls.append(b)
-    assert ks, f"the profiler kept no record in any of {ROUNDS} rounds"
-    return statistics.median(ks), statistics.median(ls), [a / b for a, b in zip(ks, ls)]
+    clock = "profiler"
+    if not ks:
+        log(f"interleaved_ms: the profiler kept no record in any of {ROUNDS} rounds; both "
+            f"sides timed by CUDA events instead")
+        for _ in range(ROUNDS):
+            ks.append(cuda_ms(kernel, reps))
+            ls.append(cuda_ms(library, reps))
+        clock = "events"
+    return statistics.median(ks), statistics.median(ls), [a / b for a, b in zip(ks, ls)], clock
 
 
 def misaligned(shape, dt, g) -> torch.Tensor:
@@ -657,9 +708,9 @@ def retrieval_row(name, shape, err, run, plain_fn, lib_fn, lib_name, reps, nbyte
     library call (``interleaved_ms``; alone when there is none), and its
     plain version by ``plain_ms``; print its rates beside the bound."""
     if lib_fn is not None:
-        ms, lib, ratios = interleaved_ms(run, lib_fn, reps)
+        ms, lib, ratios, clock = interleaved_ms(run, lib_fn, reps)
     else:
-        ms, lib, ratios = device_ms(run, reps), None, []
+        ms, lib, ratios, clock = device_ms(run, reps), None, [], "profiler"
         assert ms is not None, f"{name}: the profiler kept no record"
     plain, pclock = plain_ms(plain_fn, 3)
     bms, by = bound(nbytes, flops, bw, fp32)
@@ -670,7 +721,7 @@ def retrieval_row(name, shape, err, run, plain_fn, lib_fn, lib_name, reps, nbyte
            "round: " + ", ".join(f"{r:.3f}" for r in ratios) + ")" if lib is not None
            else "not timed"))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
-                bound_by=by, nbytes=nbytes, flops=flops, clock="profiler", plain_clock=pclock,
+                bound_by=by, nbytes=nbytes, flops=flops, clock=clock, plain_clock=pclock,
                 shape=shape)
 
 
@@ -710,7 +761,7 @@ def kernel_phase(args, idx_exact, idx_ivf, idx_q, queries, bw, fp32) -> dict:
     norm = torch.nn.functional.normalize
     # the shape of sem_search (one query; printed only, not the kernel's row)
     q1 = q[:1]
-    ms1, lib1, r1 = interleaved_ms(lambda: ksim.similarity(q1, c),
+    ms1, lib1, r1, _ = interleaved_ms(lambda: ksim.similarity(q1, c),
                                    lambda: torch.matmul(norm(q1, dim=1), norm(c, dim=1).T), 10)
     log(f"similarity q[1,{DIM}] x c[{nc},{DIM}] (sem_search's shape), device time (profiler): "
         f"kernel {ms1:.4f} ms ({4 * DIM * nc / ms1 / 1e6:.0f} GB/s of corpus), F.normalize + "
@@ -842,7 +893,7 @@ def kernel_phase(args, idx_exact, idx_ivf, idx_q, queries, bw, fp32) -> dict:
         assert torch.equal(got, run1()), f"{name}, one query: two calls differ"
         del got, want
         u1 = torch.unique(pl1)
-        ms1, lib1_ms, r1 = interleaved_ms(run1, lib1, 5)
+        ms1, lib1_ms, r1, _ = interleaved_ms(run1, lib1, 5)
         b1 = int(sizes[u1].sum()) * row_bytes
         log(f"{name} q[8,{DIM}] probes[1,{pb1.shape[1]}] (sem_search's shape: one query "
             f"padded to a block, {len(u1)} distinct clusters), device time (profiler): kernel "
@@ -1172,7 +1223,7 @@ def oracle_kernel_phase(args, bw, fp32, bf16) -> dict:
     for dt in (b16, f32):
         q, k, v = qkv(B, S, S, H, HK, HD, dt)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        ms, lib, ratios = interleaved_ms(
+        ms, lib, ratios, clock = interleaved_ms(
             lambda: kfa.flash_attention(q, k, v, causal=True),
             lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), 10)
         plain, pclock = plain_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True), 3)
@@ -1189,7 +1240,7 @@ def oracle_kernel_phase(args, bw, fp32, bf16) -> dict:
         if dt == b16:
             out["flash_attention"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
-                bound_by=by, nbytes=nbytes, flops=flops, clock="profiler", plain_clock=pclock,
+                bound_by=by, nbytes=nbytes, flops=flops, clock=clock, plain_clock=pclock,
                 shape=f"q[{B},{S},{H},{HD}] k/v[{B},{S},{HK},{HD}] bf16 causal")
         del q, k, v, qt, kt, vt
     e5_attention_row(g, bw, fp32)
@@ -1214,7 +1265,7 @@ def oracle_kernel_phase(args, bw, fp32, bf16) -> dict:
     x = torch.randn(B * S, D, device=dev, generator=g).to(b16)
     sc = torch.randn(D, device=dev, generator=g)
     sc16 = sc.to(b16)
-    ms, lib, ratios = interleaved_ms(
+    ms, lib, ratios, clock = interleaved_ms(
         lambda: krn.rmsnorm(x, sc, eps=1e-5),
         lambda: torch.nn.functional.rms_norm(x, (D,), sc16, eps=1e-5), 20)
     plain, pclock = plain_ms(lambda: ref.rmsnorm_ref(x, sc, eps=1e-5), 10)
@@ -1222,7 +1273,7 @@ def oracle_kernel_phase(args, bw, fp32, bf16) -> dict:
     bms, by = bound(nbytes, 4 * x.numel(), bw, fp32)
     out["rmsnorm"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
                           bound_ms=bms, bound_by=by, nbytes=nbytes, flops=4 * x.numel(),
-                          clock="profiler", plain_clock=pclock,
+                          clock=clock, plain_clock=pclock,
                           shape=f"x[{B * S},{D}] bf16, scale[{D}] f32")
     log(f"rmsnorm x[{B * S},{D}] bf16, device time (profiler): kernel {ms:.4f} ms "
         f"({nbytes / ms / 1e6:.0f} GB/s, {bms / ms:.3f} of the {by} bound {bms:.4f} ms at "
@@ -1248,7 +1299,7 @@ def e5_attention_row(g, bw, fp32) -> None:
     q, k, v = (torch.randn(b, s, n, hd, device="cuda", generator=g) for n in (h, hk, hk))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    ms, lib, ratios = interleaved_ms(lambda: kfa.flash_attention(q, k, v, causal=False),
+    ms, lib, ratios, clock = interleaved_ms(lambda: kfa.flash_attention(q, k, v, causal=False),
                                      lambda: sdpa(qt, kt, vt), 10)
     plain, pclock = plain_ms(lambda: ref.flash_attention_ref(q, k, v, causal=False), 5)
     flops = 4 * b * h * hd * s * s
@@ -1594,7 +1645,7 @@ def decode_kernel_phase(args, bw, bf16) -> dict:
         q, k, v, lens = inputs(B, S, H, HK, HD, dt, edges=False, gen=gt)
         mask = (torch.arange(S, device=dev)[None, :] <= lens[:, None])[:, None, None, :]
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        ms, lib, ratios = interleaved_ms(
+        ms, lib, ratios, clock = interleaved_ms(
             lambda: kda.decode_attention(q, k, v, lens),
             lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True), 20)
         plain, pclock = plain_ms(lambda: ref.decode_attention_ref(q, k, v, lens), 5)
@@ -1616,7 +1667,7 @@ def decode_kernel_phase(args, bw, bf16) -> dict:
         if dt == b16:
             out["decode_attention"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
-                bound_by=by, nbytes=nbytes, flops=flops, clock="profiler", plain_clock=pclock,
+                bound_by=by, nbytes=nbytes, flops=flops, clock=clock, plain_clock=pclock,
                 shape=f"q[{B},1,{H},{HD}] k/v[{B},{S},{HK},{HD}] bf16, {rows} attended rows")
     r = out["decode_attention"]
     log(f"kernel decode_attention: {r['shape']} err={r['max_abs_err']:.3g} "
@@ -2831,14 +2882,18 @@ def family_timings(name, runner, prefills, decodes, gen_tokens: int, run_s: floa
     runner.decode(toks, lens)
     wall, recs = profiled(lambda: runner.decode(toks, lens))
     busy = sum(e.self_device_time_total for e in recs) / 1e3
-    assert busy > 0, f"{name}: the profiler recorded no device time for the decode step"
     attn = sum(e.self_device_time_total for e in recs if kda.KERNEL_PREFIX in e.key) / 1e3
     attends = runner.cfg.family != "ssm" and runner.cfg.attn_impl in ("auto", "pallas")
-    assert (attn > 0) == attends, \
-        f"{name}: the decode step's profile reads {attn} ms of {kda.KERNEL_PREFIX}*"
+    if recs:   # deep into the run the profiler can keep no record at all
+        assert (attn > 0) == attends, \
+            f"{name}: the decode step's profile reads {attn} ms of {kda.KERNEL_PREFIX}*"
+    else:
+        log(f"{name}: the profiler kept no device record of the decode step: busy, idle share "
+            f"and decode_attention time not measured (the launch counters hold the kernel)")
     out = {"prefill_ms": {b: statistics.median(v) for b, v in sorted(by_bucket.items())},
            "decode_ms": {a: statistics.median(v) for a, v in sorted(by_active.items())},
-           "tokens_per_s": gen_tokens / run_s, "idle_share": 1 - busy / wall}
+           "tokens_per_s": gen_tokens / run_s,
+           "idle_share": 1 - busy / wall if recs else None}
     log(f"{name}: prefill ms by {'length' if recurrent else 'bucket'} (median, count) "
         + ", ".join(f"{b}: {statistics.median(v):.2f} x{len(v)}"
                     for b, v in sorted(by_bucket.items()))
@@ -2848,7 +2903,7 @@ def family_timings(name, runner, prefills, decodes, gen_tokens: int, run_s: floa
         + f"; {gen_tokens} generated tokens in {run_s:.2f} s ({out['tokens_per_s']:.1f} "
         f"tokens/s); one decode step [{runner.max_slots} slots, lens {lens_v}] under the "
         f"profiler: wall {wall:.2f} ms, device busy {busy:.3f} ms, idle share "
-        f"{out['idle_share']:.4f}, decode_attention {attn:.3f} ms")
+        f"{out['idle_share']}, decode_attention {attn:.3f} ms")
     return out
 
 
@@ -3377,7 +3432,7 @@ def launch_counts(engine, prompt: torch.Tensor, extra=None) -> dict:
     registry.decode_step(cfg, params, prompt[:, -1:], cache, prompt.shape[1])
     step = kernel_launches()
     n_fwd, n_step = rec_launches(cfg)
-    zeros = {n: 0 for n, _ in _KERNELS}
+    zeros = {n: 0 for n, _, _ in _KERNELS}
     assert fwd == {**zeros, "flash_attention": n_fwd}, (cfg.name, fwd)
     assert step == {**zeros, "decode_attention": n_step}, (cfg.name, step)
     log(f"{cfg.name}: one forward [{prompt.shape[0]}, {prompt.shape[1]}] launches "
@@ -3551,7 +3606,7 @@ def rec_kernel_rows(args, bw, bf16) -> None:
         e = close_err(kfa.flash_attention(q, k, v, causal=causal),
                       ref.flash_attention_ref(q, k, v, causal=causal), ATTN_TOL[b16])
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        ms, lib, ratios = interleaved_ms(lambda: kfa.flash_attention(q, k, v, causal=causal),
+        ms, lib, ratios, clock = interleaved_ms(lambda: kfa.flash_attention(q, k, v, causal=causal),
                                          lambda: sdpa(qt, kt, vt, is_causal=causal), 10)
         pairs = s * (s + 1) // 2 if causal else s * s
         flops = 4 * b * h * hd * pairs
@@ -3571,7 +3626,7 @@ def rec_kernel_rows(args, bw, bf16) -> None:
                       ref.decode_attention_ref(q, k, v, lens), ATTN_TOL[b16])
         mask = (torch.arange(s, device="cuda")[None, :] <= lens[:, None])[:, None, None, :]
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        ms, lib, ratios = interleaved_ms(lambda: kda.decode_attention(q, k, v, lens),
+        ms, lib, ratios, clock = interleaved_ms(lambda: kda.decode_attention(q, k, v, lens),
                                          lambda: sdpa(qt, kt, vt, attn_mask=mask), 20)
         rows = int((lens + 1).sum())
         nbytes = rows * h * hd * 2 * 2 + 2 * q.numel() * 2 + b * 4
@@ -3616,6 +3671,495 @@ def recurrent_phase(args, smi: str, bw, bf16) -> dict:
         free_card()
         log(f"{name} on {smi}: {json.dumps(out[name])}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: training at full width, through the attention kernel pair
+# ---------------------------------------------------------------------------
+
+TRAIN = "llama3.2-3b"
+# The loop of the run: batch 4 x 512 tokens, two microbatches of 2 (so each
+# attention call is q [2,512,24,128], k/v [2,512,8,128]), 3 steps, the default
+# OptimizerConfig (f32 master weights and moments), remat on (the config's).
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 4, 512, 2, 3
+TRAIN_REDUCED_LAYERS = 4   # compress_grads and checkpoint/resume: 4 of 28 layers
+TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "train_smoke")
+# The backward kernel against its plain version (autograd through the
+# contract), by the largest |got - want| / (1 + |want|): f32 within 1e-4 (five
+# products in another order: 5.5e-6 read on the H100); bf16 within
+# BWD_BF16_TOL, set between the kernel's reading (0.0143 over the cases, and
+# 0.0135 for a second correct backward written out in f32: the plain version
+# rounds dP and each q-head's dK/dV to bf16) and two gross faults of the
+# backward (D omitted 9.3; the GQA group sum dropped 4.2), which must land
+# beyond it.
+BWD_F32_TOL = 1e-4
+BWD_BF16_TOL = 5e-2
+# The first step's kernel path against the plain path (attn_impl="full") on
+# the card, same weights and batch: the loss, the global gradient norm
+# (relative) and each of wq/wk/wv's gradients (largest |diff| over the plain
+# path's largest |value|).  Two correct bf16 paths part by rounding through
+# 28 layers: on the H100 at seed 0 the kernel path read 0.00124, 4.5e-5 and
+# 0.0070 and a second correct plain path ("chunked") 0.00081, 3.1e-5 and
+# 0.0059, while a kernel path whose attention output is detached (no
+# gradient reaches wq/wk/wv) read 0.87 in the norm and 1.0 in the gradients
+# and must land beyond the limits.
+TRAIN_LOSS_TOL = 0.01
+TRAIN_GNORM_TOL = 1e-3
+TRAIN_GRAD_TOL = 0.03
+# The reduced-depth run resumed from its step-2 checkpoint against the same
+# steps run straight: the last step's loss (the embedding's backward on the
+# card sums with atomics, so two runs may part in the last bits; on the H100
+# they have read the same loss).
+RESUME_TOL = 1e-3
+
+
+def bwd_err(got, want) -> float:
+    """The smallest tol for which every element is within tol + tol * |want|."""
+    g, w = got.float(), want.float()
+    assert got.shape == want.shape and got.dtype == want.dtype, (got.shape, want.shape)
+    assert bool(torch.isfinite(g).all()), "non-finite gradient"
+    return float(((g - w).abs() / (1 + w.abs())).max())
+
+
+def manual_bwd(q, k, v, dout, *, causal: bool, window: int, no_d: bool = False,
+               no_group_sum: bool = False):
+    """The attention gradient written out in f32 (a second correct backward),
+    or with one gross fault: D = rowsum(dO * O) left out of dS, or each
+    kv-head's dK/dV taken from the first q-head of its group alone."""
+    b, sq, h, hd = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    grp = h // hk
+    kr, vr = (t.repeat_interleave(grp, dim=2).float() for t in (k, v))
+    qf, gf = q.float(), dout.float()
+    scale = ref.attn_scale(hd)
+    pos_q, pos_k = torch.arange(sq, device=q.device), torch.arange(sk, device=q.device)
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = pos_q[:, None] >= pos_k[None, :]
+    if window:
+        mask = mask & (pos_q[:, None] - pos_k[None, :] < window)
+    s = torch.einsum("bqhd,bshd->bhqs", qf, kr) * scale
+    p = torch.softmax(torch.where(mask, s, ref.NEG_INF), dim=-1)
+    pv = p.to(v.dtype).float()
+    o = torch.einsum("bhqs,bshd->bqhd", pv, vr)
+    dp = torch.einsum("bqhd,bshd->bhqs", gf, vr)
+    d = 0.0 if no_d else (gf * o).sum(-1).transpose(1, 2)[..., None]
+    ds = torch.where(mask, p * (dp - d), 0.0)
+    dq = torch.einsum("bhqs,bshd->bqhd", ds, kr) * scale
+    dk = (torch.einsum("bhqs,bqhd->bshd", ds, qf) * scale).view(b, sk, hk, grp, hd)
+    dv = torch.einsum("bhqs,bqhd->bshd", pv, gf).view(b, sk, hk, grp, hd)
+    dk, dv = (t[:, :, :, 0] if no_group_sum else t.sum(3) for t in (dk, dv))
+    return tuple(t.to(q.dtype) for t in (dq, dk, dv))
+
+
+def attention_bwd_phase(args, bw, fp32, bf16) -> dict:
+    """The flash_attention backward kernel against its plain version at the
+    training shape and at ragged edges, bit-stable, beside two gross faults;
+    timed beside SDPA's backward and the bound."""
+    g = torch.Generator(device="cuda").manual_seed(args.seed + 40)
+    cfg = get_config(TRAIN)
+    mb = TRAIN_BATCH // TRAIN_MICRO
+    H, HK, HD = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    f32, b16 = torch.float32, torch.bfloat16
+    tol = {f32: BWD_F32_TOL, b16: BWD_BF16_TOL}
+
+    def inputs(b, sq, sk, h, hk, hd, dt):
+        return (torch.randn(b, sq, h, hd, device="cuda", generator=g).to(dt),
+                torch.randn(b, sk, hk, hd, device="cuda", generator=g).to(dt),
+                torch.randn(b, sk, hk, hd, device="cuda", generator=g).to(dt),
+                torch.randn(b, sq, h, hd, device="cuda", generator=g).to(dt))
+
+    worst, worst_abs = {f32: 0.0, b16: 0.0}, 0.0
+    for shape, dt, causal, window in [
+            ((mb, TRAIN_SEQ, TRAIN_SEQ, H, HK, HD), b16, True, 0),   # the training shape
+            ((mb, TRAIN_SEQ, TRAIN_SEQ, H, HK, HD), f32, True, 0),
+            ((2, 129, 191, H, HK, HD), b16, True, 0),     # Sq, Sk no multiple of 64
+            ((2, 191, 129, H, HK, HD), f32, True, 0),
+            ((2, 300, 300, H, HK, HD), b16, True, 64),    # sliding window
+            ((2, 256, 100, 8, 2, HD), b16, True, 32),     # rows no key may see
+            ((2, 256, 100, 8, 2, HD), f32, False, 32),
+            ((2, 200, 200, 8, 1, 100), b16, True, 0),     # H/Hk 8, hd 100
+            ((2, 200, 200, 8, 1, 100), f32, False, 0),
+            ((3, 77, 77, 8, 4, 64), b16, False, 0),       # hd 64, odd S, no mask
+            ((3, 77, 77, 8, 4, 64), f32, True, 16),
+            ("misaligned", b16, True, 0), ("misaligned", f32, True, 8)]:
+        if shape == "misaligned":
+            shape = (2, 96, 96, 4, 2, HD)
+            q, k, v, dout = (misaligned(s_, dt, g) for s_ in
+                             ((2, 96, 4, HD), (2, 96, 2, HD), (2, 96, 2, HD), (2, 96, 4, HD)))
+        else:
+            q, k, v, dout = inputs(*shape, dt)
+        out = kfa.flash_attention(q, k, v, causal=causal, window=window)
+        got = kfa.flash_attention_bwd(q, k, v, out, dout, causal=causal, window=window)
+        again = kfa.flash_attention_bwd(q, k, v, out, dout, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), "two calls differ"
+        want = ref.flash_attention_bwd_ref(q, k, v, out, dout, causal=causal, window=window)
+        errs = [bwd_err(a, b) for a, b in zip(got, want)]
+        log(f"flash_attention backward [b,sq,sk,h,hk,hd]={list(shape)} {dt} causal={causal} "
+            f"window={window}{' misaligned' if q.data_ptr() % 16 else ''}: dq/dk/dv "
+            f"|diff|/(1+|plain|) {errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g} (limit {tol[dt]}); "
+            f"two calls identical")
+        assert max(errs) <= tol[dt], (shape, dt, errs)
+        worst[dt] = max(worst[dt], max(errs))
+        if dt == b16:
+            worst_abs = max([worst_abs] + [float((a.float() - b.float()).abs().max())
+                                           for a, b in zip(got, want)])
+
+    # the limit against a second correct backward and two gross faults, at the
+    # training shape in bf16
+    shape = (mb, TRAIN_SEQ, TRAIN_SEQ, H, HK, HD)
+    q, k, v, dout = inputs(*shape, b16)
+    out = kfa.flash_attention(q, k, v, causal=True)
+    got = kfa.flash_attention_bwd(q, k, v, out, dout, causal=True)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, dout, causal=True)
+    rows = {"kernel": got, "f32 written out (correct)": manual_bwd(q, k, v, dout, causal=True,
+                                                                  window=0)}
+    faults = {"D omitted": manual_bwd(q, k, v, dout, causal=True, window=0, no_d=True),
+              "GQA group sum dropped": manual_bwd(q, k, v, dout, causal=True, window=0,
+                                                  no_group_sum=True)}
+    for name, grads in {**rows, **faults}.items():
+        e = max(bwd_err(a, b) for a, b in zip(grads, want))
+        log(f"flash_attention backward bf16 training shape, {name}: max |diff|/(1+|plain|) "
+            f"{e:.4g} (limit {BWD_BF16_TOL})")
+        assert (e > BWD_BF16_TOL) == (name in faults), (name, e)
+
+    # timing: the kernel in turns with SDPA's backward (one autograd call
+    # over SDPA's graph, GQA), the plain version, the bound
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                                enable_gqa=True)
+    dout_t = dout.transpose(1, 2)
+    ms, lib, ratios, clock = interleaved_ms(
+        lambda: kfa.flash_attention_bwd(q, k, v, out, dout, causal=True),
+        lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dout_t, retain_graph=True), 10)
+    plain, pclock = plain_ms(
+        lambda: ref.flash_attention_bwd_ref(q, k, v, out, dout, causal=True), 3)
+    ev = cuda_ms(lambda: kfa.flash_attention_bwd(q, k, v, out, dout, causal=True), 10)
+    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    flops = 10 * mb * H * HD * pairs          # S, dP, dV, dK, dQ over the unmasked pairs
+    nbytes = q.element_size() * 4 * (q.numel() + k.numel())   # q,k,v,out,dout in; dq,dk,dv out
+    bms, by = bound(nbytes, flops, bw, bf16)
+    log(f"flash_attention backward: largest |diff|/(1+|plain|) over the cases f32 "
+        f"{worst[f32]:.3g}, bf16 {worst[b16]:.3g}; largest bf16 |diff| {worst_abs:.3g}")
+    log(f"flash_attention backward q[{mb},{TRAIN_SEQ},{H},{HD}] k/v[{mb},{TRAIN_SEQ},{HK},{HD}] "
+        f"bf16 causal, device time (profiler): kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+        f"TFLOP/s, {bms / ms:.3f} of the {by} bound {bms:.4f} ms), plain {plain:.4f} ms "
+        f"({pclock}), SDPA backward {lib:.4f} ms; median kernel / SDPA "
+        f"{statistics.median(ratios):.3f} (each round: "
+        + ", ".join(f"{r:.3f}" for r in ratios) + f"); kernel by CUDA events {ev:.4f} ms")
+    del q, k, v, dout, out, got, want, rows, faults, qt, kt, vt, sdpa_out
+    free_card()
+    return {"flash_attention_bwd": dict(
+        max_abs_err=worst_abs, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
+        bound_by=by, nbytes=nbytes, flops=flops, clock=clock, plain_clock=pclock,
+        shape=f"q[{mb},{TRAIN_SEQ},{H},{HD}] k/v[{mb},{TRAIN_SEQ},{HK},{HD}] bf16 causal")}
+
+
+def train_batch(seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The loop's first batch (step 0 of SyntheticSource(seed)) on the card."""
+    b = packed_batch(SyntheticSource(seed=seed), 0, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                     seed=seed)
+    return torch.from_numpy(b["tokens"]).cuda(), torch.from_numpy(b["labels"]).cuda()
+
+
+@contextlib.contextmanager
+def detached_attention():
+    """The kernel path with its attention output detached: no gradient
+    reaches wq/wk/wv (the control that the gradient check must catch)."""
+    saved = ops.flash_attention
+
+    def detached(*a, **kw):
+        return saved(*a, **kw).detach()
+
+    ops.flash_attention = detached
+    try:
+        yield
+    finally:
+        ops.flash_attention = saved
+
+
+def profiled_train_step(cfg, ocfg, seed: int) -> dict:
+    """One train step (make_train_step, the loop's own step) after one
+    warm-up step, under the profiler: wall, device busy, idle share and the
+    busy time by kernel family."""
+    params = registry.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
+    state = opt.init_state(params, ocfg)
+    step = trainstep.make_train_step(cfg, ocfg, microbatches=TRAIN_MICRO)
+    toks, labels = train_batch(seed)
+    batch = {"tokens": toks, "labels": labels}
+    step(params, state, batch)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    del params, state, step
+    free_card()
+    # the raw device records, as device_busy reads them (no event tree)
+    cuda = torch.autograd.DeviceType.CUDA
+    recs = [(e.name(), e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda]
+    if not recs:   # deep into the run the profiler can keep no record at all
+        log(f"{TRAIN} one train step: wall {wall:.1f} ms; the profiler kept no device record, "
+            f"so busy time, idle share and the kernel families are not measured")
+        return {"wall_ms": wall, "busy_ms": None}
+    busy = union_ns(np.array([r[1:] for r in recs], np.int64)) / 1e6
+    by_name: dict[str, list] = {}
+    for name, a, b in recs:
+        by_name.setdefault(name, []).append((b - a) / 1e6)
+    fam = {"flash_attention backward": ("flash_attention_bwd",),
+           "flash_attention forward": (kfa.KERNEL_NAMES[torch.bfloat16],),
+           "GEMMs": ("nvjet", "gemm", "xmma", "cutlass")}
+    out = {k: sum(sum(v) for n, v in by_name.items() if any(w in n.lower() for w in words))
+           for k, words in fam.items()}
+    out["rest"] = busy - sum(out.values())
+    log(f"{TRAIN} one train step [{TRAIN_BATCH}, {TRAIN_SEQ}] under the profiler: wall "
+        f"{wall:.1f} ms, device busy {busy:.1f} ms (the union of {len(recs)} device records), "
+        f"idle share {1 - busy / wall:.4f}; "
+        + ", ".join(f"{k} {v:.1f} ms ({v / busy:.4f})" for k, v in out.items()))
+    top = sorted(((sum(v), n, len(v)) for n, v in by_name.items()), reverse=True)[:14]
+    log("train step top device records: "
+        + "; ".join(f"{n[:50]} x{c} {ms:.2f} ms" for ms, n, c in top))
+    return {"wall_ms": wall, "busy_ms": busy, "idle": 1 - busy / wall, **out}
+
+
+def watched(params) -> dict:
+    """Host copies of a few whole leaves: layer 0's wq and the embedding's
+    first 1024 rows (the byte tokens' among them)."""
+    return {"wq[0]": params["layers"]["attn"]["wq"][0].cpu().clone(),
+            "embedding[:1024]": params["embed"]["embedding"][:1024].cpu().clone()}
+
+
+def train_first_step(cfg, seed: int) -> dict:
+    """One step's loss, global gradient norm and wq/wk/wv gradients through
+    the kernel pair against the plain path on the card, same weights and
+    batch; each launch count checked."""
+    params = registry.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
+    toks, labels = train_batch(seed)
+    out, grads = {}, {}
+    paths = [("kernel", cfg), ("full", cfg.with_(attn_impl="full")),
+             ("chunked", cfg.with_(attn_impl="chunked", attn_q_chunk=128)),
+             ("kernel, output detached", cfg)]
+    for name, c in paths:
+        zero_launches()
+        ctx = detached_attention() if "detached" in name else contextlib.nullcontext()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ctx:
+            loss, metrics, g = trainstep.grads_and_loss(c, params, toks, labels,
+                                                        microbatches=TRAIN_MICRO)
+            gnorm = opt.global_norm(g)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = kernel_launches()
+        want = (2 * 2 * cfg.num_layers, 2 * cfg.num_layers) if name == "kernel" else \
+            (2 * 2 * cfg.num_layers, 0) if "detached" in name else (0, 0)
+        assert (n["flash_attention"], n["flash_attention_bwd"]) == want, (name, n)
+        out[name] = {"loss": float(loss), "grad_norm": float(gnorm), "wall_s": wall,
+                     "launches": [n["flash_attention"], n["flash_attention_bwd"]]}
+        grads[name] = {w: g["layers"]["attn"][w].clone() for w in ("wq", "wk", "wv")}
+        del g
+        free_card()
+    plain = out["full"]
+    for name in ("kernel", "chunked", "kernel, output detached"):
+        r = out[name]
+        r["d_loss"] = abs(r["loss"] - plain["loss"])
+        r["d_grad_norm"] = abs(r["grad_norm"] - plain["grad_norm"]) / plain["grad_norm"]
+        r["d_grads"] = {w: float((grads[name][w] - grads["full"][w]).abs().max()
+                                 / grads["full"][w].abs().max()) for w in grads[name]}
+        log(f"{TRAIN} first step, {name} against the plain path (full): loss {r['loss']:.6f} "
+            f"(plain {plain['loss']:.6f}, |diff| {r['d_loss']:.3g}, limit {TRAIN_LOSS_TOL}), "
+            f"grad_norm {r['grad_norm']:.5g} (rel diff {r['d_grad_norm']:.3g}, limit "
+            f"{TRAIN_GNORM_TOL}), wq/wk/wv max |diff| / max |plain| "
+            + "/".join(f"{v:.3g}" for v in r["d_grads"].values())
+            + f" (limit {TRAIN_GRAD_TOL}); launches fwd/bwd {r['launches']}; "
+            f"{r['wall_s']:.2f} s")
+    for name in ("kernel", "chunked"):
+        r = out[name]
+        assert r["d_loss"] <= TRAIN_LOSS_TOL and r["d_grad_norm"] <= TRAIN_GNORM_TOL, r
+        assert max(r["d_grads"].values()) <= TRAIN_GRAD_TOL, r
+    ctl = out["kernel, output detached"]
+    assert max(ctl["d_grads"].values()) > TRAIN_GRAD_TOL and \
+        ctl["d_grad_norm"] > TRAIN_GNORM_TOL, "the detached control passed the checks"
+    head = watched(params)
+    del params, grads
+    free_card()
+    return {"paths": out, "head": head}
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+class SaveRecorder:
+    """A saver for ``loop.run`` that writes nothing: it records the steps it
+    was asked to save and checks a few of the params it was handed (the
+    full-width checkpoint is 45 GB, so the phase writes checkpoints at reduced
+    depth only)."""
+
+    def __init__(self, check=None):
+        self.steps, self.check = [], check
+
+    def save(self, step, trees, extra_meta=None):
+        self.steps.append(step)
+        if self.check:
+            self.check(trees)
+
+    def wait(self):
+        pass
+
+
+class KeptCheckpointer(ckpt.AsyncCheckpointer):
+    """``AsyncCheckpointer`` that also keeps a host copy of what it saved
+    last, to hold the loop's restore against."""
+
+    def save(self, step, trees, extra_meta=None):
+        super().save(step, trees, extra_meta)
+        self.kept = {n: {p: v.detach().cpu().clone() for p, v in flatten(t).items()}
+                     for n, t in trees.items()}
+
+
+@contextlib.contextmanager
+def checked_restore(kept: dict, restored: list):
+    """The loop's own checkpoint load (``ckpt.load``, which ``loop.run``
+    calls to resume), each restored tensor held bit for bit against the host
+    snapshot ``kept`` that was saved; (step, load seconds) go to
+    ``restored``."""
+    real = ckpt.load
+
+    def load(ckpt_dir, step=None):
+        t0 = time.perf_counter()
+        n, trees = real(ckpt_dir, step)
+        restored.append((n, time.perf_counter() - t0))
+        for name, flat in kept.items():
+            back = flatten(trees[name])
+            assert sorted(back) == sorted(flat), name
+            assert all(same_bits(back[p], t) for p, t in flat.items()), name
+        return n, trees
+
+    ckpt.load = load
+    try:
+        yield
+    finally:
+        ckpt.load = real
+
+
+def timed_run(cfg, ocfg, loop, saver) -> tuple[dict, list]:
+    """``loop.run`` with a log line every step: (final metrics, the wall
+    seconds of each step, read at each log line, which waits for the
+    step's metrics)."""
+    stamps = [time.perf_counter()]
+
+    def logged(line):
+        stamps.append(time.perf_counter())
+        log(f"  {line}")
+
+    m = train_loop.run(cfg, ocfg, loop, log=logged, saver=saver)
+    return m, [b - a for a, b in zip(stamps, stamps[1:])]
+
+
+def reduced_runs(cfg, ocfg, seed: int) -> dict:
+    """At TRAIN_REDUCED_LAYERS layers: compress_grads, and a run checkpointed
+    at step 2 and resumed to step 3 against the same 3 steps straight."""
+    cfg = cfg.with_(num_layers=TRAIN_REDUCED_LAYERS)
+    base = dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                microbatches=TRAIN_MICRO, log_every=1, seed=seed, keep=1)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    out = {}
+    plain, _ = timed_run(cfg, ocfg, train_loop.LoopConfig(
+        ckpt_dir=os.path.join(TRAIN_DIR, "straight"), ckpt_every=10**9, **base), SaveRecorder())
+    comp, _ = timed_run(cfg, ocfg, train_loop.LoopConfig(
+        ckpt_dir=os.path.join(TRAIN_DIR, "compress"), ckpt_every=10**9, compress_grads=True,
+        **base), SaveRecorder())
+    assert np.isfinite(comp["loss"]) and np.isfinite(comp["grad_norm"]), comp
+    log(f"{TRAIN} at {cfg.num_layers} layers, {TRAIN_STEPS} steps: loss {plain['loss']:.6f} "
+        f"grad_norm {plain['grad_norm']:.5g}; with compress_grads (int8, error feedback): loss "
+        f"{comp['loss']:.6f} grad_norm {comp['grad_norm']:.5g}")
+    d = os.path.join(TRAIN_DIR, "resume")
+    saver = KeptCheckpointer(d, keep=1)
+    t0 = time.perf_counter()
+    timed_run(cfg, ocfg, train_loop.LoopConfig(ckpt_dir=d, ckpt_every=2,
+                                               **{**base, "steps": 2}), saver)
+    saved_s = time.perf_counter() - t0
+    step_dir = os.path.join(d, f"step_{2:08d}")
+    nbytes = sum(os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
+    restored = []
+    with checked_restore(saver.kept, restored):
+        resumed, _ = timed_run(cfg, ocfg, train_loop.LoopConfig(ckpt_dir=d, ckpt_every=10**9,
+                                                                **base), SaveRecorder())
+    assert [n for n, _ in restored] == [2], restored
+    del saver
+    d_loss = abs(resumed["loss"] - plain["loss"])
+    log(f"{TRAIN} at {cfg.num_layers} layers: 2 steps and the checkpoint of step 2 "
+        f"({nbytes / 2**30:.2f} GiB) in {saved_s:.1f} s; the loop's restore loaded it in "
+        f"{restored[0][1]:.1f} s, every tensor bit for bit as saved; resumed to step {resumed['last_step']}: loss "
+        f"{resumed['loss']:.6f} against {plain['loss']:.6f} straight (|diff| {d_loss:.3g}, "
+        f"limit {RESUME_TOL}: the embedding's backward on the card sums with atomics)")
+    assert resumed["last_step"] == TRAIN_STEPS and d_loss <= RESUME_TOL, (resumed, plain)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    out.update(straight=plain, compress=comp, resumed=resumed, ckpt_gib=nbytes / 2**30)
+    return out
+
+
+def train_phase(args, smi: str) -> dict:
+    """Phase 19: llama3.2-3b at full width trains TRAIN_STEPS steps through
+    ``loop.run`` on the card, its attention through the kernel pair."""
+    free_card()
+    cfg = get_config(TRAIN)
+    assert cfg.remat and cfg.attn_impl == "auto"
+    ocfg = opt.OptimizerConfig()
+    res = train_first_step(cfg, args.seed)
+    head = res.pop("head")
+    lap("19 first step against the plain path")
+    res["profile"] = profiled_train_step(cfg, ocfg, args.seed)
+    lap("19 profiled step")
+
+    def changed(trees):
+        """How many of the watched bf16 weights the steps changed, and how
+        far their f32 master copies moved."""
+        now = watched(trees["params"])
+        master = {"wq[0]": trees["opt_state"]["master"]["layers"]["attn"]["wq"][0],
+                  "embedding[:1024]": trees["opt_state"]["master"]["embed"]["embedding"][:1024]}
+        res["changed"] = {k: int((now[k] != head[k]).sum()) for k in now}
+        res["master_moved"] = {k: float((master[k].cpu() - head[k].float()).abs().max())
+                               for k in master}
+
+    loop = train_loop.LoopConfig(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                 microbatches=TRAIN_MICRO, log_every=1, seed=args.seed,
+                                 ckpt_dir=os.path.join(TRAIN_DIR, "full"),
+                                 ckpt_every=10**9)
+    saver = SaveRecorder(changed)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    m, step_s = timed_run(cfg, ocfg, loop, saver)
+    launches = kernel_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    assert launches["flash_attention"] == TRAIN_STEPS * 2 * TRAIN_MICRO * cfg.num_layers, launches
+    assert launches["flash_attention_bwd"] == TRAIN_STEPS * TRAIN_MICRO * cfg.num_layers, launches
+    assert saver.steps == [TRAIN_STEPS], saver.steps
+    assert np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]), m
+    assert all(v > 0 for v in res["changed"].values()), res["changed"]
+    assert all(v > 0 for v in res["master_moved"].values()), res["master_moved"]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = statistics.median(step_s[1:])
+    res.update(loss=m["loss"], grad_norm=m["grad_norm"], step_s=step_s, peak_gib=peak,
+               tokens_per_s=tokens / steady, launches={k: launches[k] for k in
+                                                       ("flash_attention", "flash_attention_bwd")})
+    log(f"{TRAIN} on {smi}: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
+        f"({TRAIN_MICRO} microbatches, remat, f32 master and moments): step wall "
+        + ", ".join(f"{s:.3f}" for s in step_s) + f" s (the first includes warm-up), "
+        f"{tokens / steady:.0f} tokens/s at the median of the later steps, peak memory "
+        f"{peak:.2f} GiB; loss {m['loss']:.5f}, grad_norm {m['grad_norm']:.4g}; bf16 weights "
+        f"changed {res['changed']}, their f32 master copies moved up to {res['master_moved']}; "
+        f"launches {res['launches']}")
+    free_card()
+    lap("19 loop.run at full width")
+    res["reduced"] = reduced_runs(cfg, ocfg, args.seed)
+    free_card()
+    return res
 
 
 def main() -> None:
@@ -3770,6 +4314,14 @@ def main() -> None:
     recurrent_phase(args, smi, bw, bf16)
     lap("18 recurrent families")
 
+    # 19. training at full width through the attention kernel pair
+    kres.update(attention_bwd_phase(args, bw, fp32, bf16))
+    lap("19 backward kernel")
+    train = train_phase(args, smi)
+    launches["flash_attention_bwd"] = train["launches"]["flash_attention_bwd"]
+    log(f"{TRAIN} training on {smi}: {json.dumps(train)}")
+    lap("19 reduced depth: compress_grads, checkpoint and resume")
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"device: {smi}")
     log(json.dumps({"kernels": [
@@ -3779,7 +4331,7 @@ def main() -> None:
          "plain_ms": kres[name]["plain_ms"], "bound_ms": kres[name]["bound_ms"],
          "bound_by": kres[name]["bound_by"], "library_ms": kres[name]["library_ms"],
          "clock": kres[name]["clock"], "plain_clock": kres[name]["plain_clock"]}
-        for name, _ in _KERNELS]}))
+        for name, _, _ in _KERNELS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

@@ -23,7 +23,7 @@ import torch
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("similarity", "ivf_scan", "ivf_scan_q", "flash_attention", "rmsnorm",
-           "decode_attention")
+           "decode_attention", "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -143,13 +143,13 @@ def require(t, what: str, dtype, ndim: int, device=None) -> None:
         raise ValueError(f"{what} must be contiguous")
 
 
-def count_launch(namespace: dict) -> None:
-    """Add one to a kernel module's ``launches`` (``namespace`` is its
+def count_launch(namespace: dict, counter: str = "launches") -> None:
+    """Add one to a kernel module's ``counter`` (``namespace`` is its
     ``globals()``), under one lock: the plan executor calls the ops entries
     from several fragment threads at once, and a bare ``launches += 1`` can
     lose a count between its read and its write."""
     with _count_lock:
-        namespace["launches"] += 1
+        namespace[counter] += 1
 
 
 def stream_of(t) -> int:

@@ -4,8 +4,16 @@ model's self-attention reaches under ``attn_impl="pallas"`` (and under the
 configs' ``"auto"`` for activations on the card).  bf16 runs on the tensor
 cores (``wgmma``, f32 accumulators); f32 stays IEEE f32 on the SIMT pipes.
 
-:func:`flash_attention` takes CUDA tensors only; its plain version is
-``ref.flash_attention_ref``, which ``ops`` runs for tensors on the CPU.
+Its gradient is the hand-written kernel ``csrc/flash_attention_bwd.cu``
+(:func:`flash_attention_bwd`); :class:`FlashAttention` binds the two as one
+``torch.autograd.Function``, which ``ops.flash_attention`` calls on the
+card, so a backward pass through the model's attention runs the kernel
+pair.  The forward saves q, k, v and its output; the backward recomputes
+the scores.
+
+Both take CUDA tensors only; their plain versions are
+``ref.flash_attention_ref`` and ``ref.flash_attention_bwd_ref``, which
+``ops`` and the tests run for tensors on the CPU.
 """
 from __future__ import annotations
 
@@ -16,7 +24,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import attn_scale
 
-launches = 0   # kernel launches since the caller last set this to 0
+launches = 0            # forward launches since the caller last set this to 0
+backward_launches = 0   # backward launches (csrc/flash_attention_bwd.cu), likewise
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel each dtype launches, by the name a profiler or cuobjdump shows
@@ -25,6 +34,8 @@ KERNEL_NAMES = {torch.float32: "flash_attention_simt_f32",
 MAX_HEAD_DIM = 128
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_longlong] * 6 + \
+    [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] + [ctypes.c_longlong] * 6 + \
     [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
@@ -67,3 +78,55 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _build.check(rc, "flash_attention", "flash_attention kernel")
     _build.count_launch(globals())
     return out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor, *, causal: bool = True,
+                        window: int = 0) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`flash_attention`: q/out/dout [B,Sq,H,hd], k/v
+    [B,Sk,Hk,hd] (f32 or bf16, one type), ``out`` the forward's output and
+    ``dout`` its gradient -> (dq, dk, dv) in that type.  Two launches on the
+    current stream (the q tiles' pass, then the kv tiles'), counted as one;
+    no atomics, so two calls give the same bits."""
+    _build.require(q, "q", tuple(DTYPES), 4)
+    for t, what in ((k, "k"), (v, "v"), (out, "out"), (dout, "dout")):
+        _build.require(t, what, q.dtype, 4, q.device)
+    check_shapes(q, k, v, window)
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dout {tuple(dout.shape)} must have "
+                         f"q's shape {tuple(q.shape)}")
+    b, sq, h, hd = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    stats = torch.empty(3 * b * h * sq, dtype=torch.float32, device=q.device)  # m, l, D
+    fn = _build.function("flash_attention_bwd", "repro_flash_attention_bwd", _BWD_ARGS)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), DTYPES[q.dtype],
+            b, sq, sk, h, hk, hd, attn_scale(hd), int(causal), int(window), q.device.index,
+            _build.stream_of(q))
+    _build.check(rc, "flash_attention_bwd", "flash_attention backward kernel")
+    _build.count_launch(globals(), "backward_launches")
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` with :func:`flash_attention_bwd` as its
+    gradient.  Under ``torch.utils.checkpoint`` (the models' remat) the
+    forward runs again in the backward pass, so a rematerialized layer
+    launches the forward twice and the backward once."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None

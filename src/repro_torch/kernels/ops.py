@@ -104,10 +104,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     impl: str | None = None) -> torch.Tensor:
     """GQA attention, q [B,Sq,H,hd], k/v [B,Sk,Hk,hd] -> [B,Sq,H,hd] on the
-    tensors' device; torch contract ``ref.flash_attention_ref``."""
+    tensors' device; torch contract ``ref.flash_attention_ref``.  Both paths
+    are differentiable: the kernel's gradient is its backward kernel
+    (``_fa.FlashAttention``), the contract's torch autograd."""
     if _resolve(impl, q) == "ref":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-    return _fa.flash_attention(q, k, v, causal=causal, window=window)
+    return _fa.FlashAttention.apply(q, k, v, causal, window)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -67,6 +67,23 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(v.dtype)
 
 
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            out: torch.Tensor, dout: torch.Tensor, *, causal: bool = True,
+                            window: int = 0
+                            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`flash_attention_ref` at q, k, v for the output
+    gradient ``dout``: torch autograd through the contract.  ``out`` (the
+    forward's output) is taken for the kernel's signature and not read.
+    Masked scores get no gradient; a row that no key may see sends its
+    uniform probabilities into dv only; dk and dv sum over each kv-head's
+    group of q-heads."""
+    del out
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = flash_attention_ref(*leaves, causal=causal, window=window)
+        return torch.autograd.grad(o, leaves, dout)
+
+
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          lens: torch.Tensor, *, window: int = 0) -> torch.Tensor:
     """q:[B,1,H,hd], k/v:[B,S,Hk,hd], lens:[B] -> [B,1,H,hd] in ``v.dtype``.

@@ -21,7 +21,7 @@ from repro_torch.common import ParamSpec, SpecTree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import _layer, _stack
+from repro_torch.models.transformer import _layer, _maybe_remat, _stack
 
 
 def _enc_layer_specs(cfg: ModelConfig) -> dict:
@@ -72,17 +72,21 @@ def _frames(cfg: ModelConfig, extra) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def encode(params, frames, *, cfg: ModelConfig):
+def _enc_layer(lp, x, *, cfg: ModelConfig):
+    h = L.layernorm(lp["attn_norm"], x, cfg.norm_eps)
+    a, _ = attn.self_attention(lp["attn"], h, cfg=cfg, causal=False)
+    x = x + a
+    h = L.layernorm(lp["ffn_norm"], x, cfg.norm_eps)
+    return x + L.gelu_ffn(lp["ffn"], h)
+
+
+def encode(params, frames, *, cfg: ModelConfig, remat: bool = False):
     """frames: [B, T, d] (stub frontend output) -> [B, T, d], in the frames'
     dtype, as the reference's."""
     x = frames + _sinusoidal(frames.shape[1], cfg.d_model, frames.device).to(frames.dtype)
+    layer = _maybe_remat(_enc_layer, cfg, remat)
     for i in range(cfg.encoder_layers):
-        lp = _layer(params["enc_layers"], i)
-        h = L.layernorm(lp["attn_norm"], x, cfg.norm_eps)
-        a, _ = attn.self_attention(lp["attn"], h, cfg=cfg, causal=False)
-        x = x + a
-        h = L.layernorm(lp["ffn_norm"], x, cfg.norm_eps)
-        x = x + L.gelu_ffn(lp["ffn"], h)
+        x = layer(_layer(params["enc_layers"], i), x, cfg=cfg)
     return L.layernorm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -106,15 +110,17 @@ def _decode_logits(params, x, cfg):
     return L.unembed(params["embed"], x, tied=True)
 
 
-def _run_decoder_seq(params, tokens, enc_out, *, cfg: ModelConfig, cache=None):
+def _run_decoder_seq(params, tokens, enc_out, *, cfg: ModelConfig, cache=None,
+                     remat: bool = False):
     """The decoder over a whole sequence; with ``cache``, each layer's K/V is
     written at the head of its [B, Smax] rows and its cross K/V whole."""
     s = tokens.shape[1]
     x = L.embed(params["embed"], tokens).to(cfg.activation_dtype)
     x = x + params["pos_embed"][:s].to(x.dtype)
+    layer = _maybe_remat(_dec_layer_seq, cfg, remat)
     for i in range(cfg.num_layers):
         lp = _layer(params["dec_layers"], i)
-        x, (k, v) = _dec_layer_seq(lp, x, enc_out, cfg=cfg)
+        x, (k, v) = layer(lp, x, enc_out, cfg=cfg)
         if cache is not None:
             cache["self"]["k"][i, :, :s] = k
             cache["self"]["v"][i, :, :s] = v
@@ -123,10 +129,10 @@ def _run_decoder_seq(params, tokens, enc_out, *, cfg: ModelConfig, cache=None):
     return x
 
 
-def forward(params, tokens, *, cfg: ModelConfig, extra=None):
+def forward(params, tokens, *, cfg: ModelConfig, extra=None, remat: bool = False):
     """Teacher-forced decoder pass. tokens [B,S]; extra['audio_frames'] [B,T,d]."""
-    enc_out = encode(params, _frames(cfg, extra), cfg=cfg)
-    x = _run_decoder_seq(params, tokens, enc_out, cfg=cfg)
+    enc_out = encode(params, _frames(cfg, extra), cfg=cfg, remat=remat)
+    x = _run_decoder_seq(params, tokens, enc_out, cfg=cfg, remat=remat)
     return _decode_logits(params, x, cfg), {}
 
 

@@ -24,7 +24,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
-from repro_torch.models.transformer import _layer, _set_layer, _stack
+from repro_torch.models.transformer import _layer, _maybe_remat, _set_layer, _stack
 
 
 def _layout(cfg: ModelConfig):
@@ -108,11 +108,17 @@ def _shared_attn_decode(sp, x, x0, k_cache, v_cache, cache_len, *, cfg):
 # ---------------------------------------------------------------------------
 
 
-def _run_seq(params, x, *, cfg: ModelConfig, cache=None):
+def _mamba_block(lp, x, *, cfg: ModelConfig):
+    return x + ssm.mamba2_forward(lp["mixer"], L.rmsnorm(lp["norm"], x, cfg.norm_eps), cfg=cfg)
+
+
+def _run_seq(params, x, *, cfg: ModelConfig, cache=None, remat: bool = False):
     """The blocks over a whole sequence; with ``cache``, each Mamba layer's
     final state and each shared application's K/V (at the head of its
-    [B, Smax] rows) are written into the cache."""
+    [B, Smax] rows) are written into the cache.  ``remat`` rematerializes
+    the Mamba blocks, as the reference does (the shared block is not)."""
     x0, s = x, x.shape[1]
+    mamba = _maybe_remat(_mamba_block, cfg, remat)
     for stack, i in _blocks(cfg):
         if stack == "shared":
             x, (k, v) = _shared_attn_seq(params["shared"], x, x0, cfg=cfg)
@@ -121,10 +127,10 @@ def _run_seq(params, x, *, cfg: ModelConfig, cache=None):
                 cache["attn"]["v"][i, :, :s] = v
             continue
         lp = _layer(params[f"{stack}_layers"], i)
-        h = L.rmsnorm(lp["norm"], x, cfg.norm_eps)
         if cache is None:
-            x = x + ssm.mamba2_forward(lp["mixer"], h, cfg=cfg)
+            x = mamba(lp, x, cfg=cfg)
         else:
+            h = L.rmsnorm(lp["norm"], x, cfg.norm_eps)
             y, st = ssm.mamba2_forward(lp["mixer"], h, cfg=cfg, return_state=True)
             _set_layer(cache[stack], i, st)
             x = x + y
@@ -136,9 +142,9 @@ def _logits(params, x, cfg):
     return L.unembed({**params.get("out", {}), **params["embed"]}, x, tied=cfg.tie_embeddings)
 
 
-def forward(params, tokens, *, cfg: ModelConfig, extra=None):
+def forward(params, tokens, *, cfg: ModelConfig, extra=None, remat: bool = False):
     x = L.embed(params["embed"], tokens).to(cfg.activation_dtype)
-    return _logits(params, _run_seq(params, x, cfg=cfg), cfg), {}
+    return _logits(params, _run_seq(params, x, cfg=cfg, remat=remat), cfg), {}
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> SpecTree:

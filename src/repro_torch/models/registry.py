@@ -2,7 +2,7 @@
 
     param_specs(cfg)                                  -> SpecTree
     init_params(cfg, generator)                       -> params on the generator's device
-    forward(cfg, params, tokens, extra=...)           -> (logits, aux)
+    forward(cfg, params, tokens, extra=..., remat=...) -> (logits, aux)
     cache_specs(cfg, batch, max_seq)                  -> SpecTree
     init_cache(cfg, batch, max_seq)                   -> zeroed KV cache
     prefill(cfg, params, tokens, cache, extra=...)    -> (logits, cache)
@@ -17,6 +17,9 @@ reference is served: ``dense``, ``moe`` and ``vlm`` by
 the cache it is given in place and returns it.  The ``ssm`` and ``hybrid``
 caches are recurrent states, which a prefill leaves after its last token:
 the engine prefills them at a prompt's true length (``RECURRENT``).
+``remat=True`` rematerializes each block in the backward pass when the
+config's ``remat`` is set and autograd is recording (the train step's
+forward); prefill and decode never do.
 """
 from __future__ import annotations
 
@@ -51,8 +54,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
     return _init(param_specs(cfg), generator)
 
 
-def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *, extra=None):
-    return module_for(cfg).forward(params, tokens, cfg=cfg, extra=extra)
+def forward(cfg: ModelConfig, params, tokens: torch.Tensor, *, extra=None, remat=False):
+    return module_for(cfg).forward(params, tokens, cfg=cfg, extra=extra, remat=remat)
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> SpecTree:

@@ -31,7 +31,10 @@ positions.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common import ParamSpec, SpecTree
 from repro_torch.configs.base import ModelConfig
@@ -204,8 +207,20 @@ def _cross_block_decode(cp, x, k_mem, v_mem, *, cfg: ModelConfig):
 
 
 def _layer(tree: dict, i: int) -> dict:
-    """Layer ``i`` of a param tree stacked over layers (views, no copy)."""
+    """Layer ``i`` of a param tree stacked over layers (views, no copy).  A
+    stack may also be a list of per-layer tensors: the train step
+    differentiates each layer's slice as a leaf of its own."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def _maybe_remat(fn, cfg: ModelConfig, enable: bool):
+    """``fn`` rematerialized in the backward pass when ``enable and
+    cfg.remat`` and autograd is recording (the reference's ``jax.checkpoint``
+    under ``nothing_saveable``): only the block's inputs are kept, and its
+    forward runs again when the gradient reaches it."""
+    if enable and cfg.remat and torch.is_grad_enabled():
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    return fn
 
 
 def _set_layer(tree: dict, i: int, values: dict) -> None:
@@ -235,23 +250,27 @@ def _image_embeds(cfg: ModelConfig, extra):
 # ---------------------------------------------------------------------------
 
 
-def _run_layers_seq(params, x, *, cfg: ModelConfig, extra=None, cache=None):
+def _run_layers_seq(params, x, *, cfg: ModelConfig, extra=None, cache=None,
+                    remat: bool = False):
     """The blocks over a whole sequence -> (x, aux).  With ``cache``, each
     decoder layer's K/V is written at the head of its [B, Smax] cache, and
-    each cross block's image K/V into ``cache["cross"]``."""
+    each cross block's image K/V into ``cache["cross"]``.  ``remat``
+    rematerializes each block (:func:`_maybe_remat`)."""
     blocks = _blocks(cfg)
     mem = _image_embeds(cfg, extra) if blocks[0][0] == "cross" else None
     aux = {"moe_lb": 0.0, "moe_z": 0.0} if cfg.is_moe else {}
     s = x.shape[1]
+    layer_fn = _maybe_remat(_decoder_layer_seq, cfg, remat)
+    cross_fn = _maybe_remat(_cross_block_seq, cfg, remat)
     for kind, stack, entry, i in blocks:
         lp = _layer(params[stack], i)
         if kind == "cross":
-            x = _cross_block_seq(lp, x, mem, cfg=cfg)
+            x = cross_fn(lp, x, mem, cfg=cfg)
             if cache is not None:   # the image K/V, computed once for decode
                 cache[entry]["k"][i] = L.einsum("bsd,dhk->bshk", mem, lp["xattn"]["wk"])
                 cache[entry]["v"][i] = L.einsum("bsd,dhk->bshk", mem, lp["xattn"]["wv"])
             continue
-        x, (k, v), a = _decoder_layer_seq(lp, x, cfg=cfg, use_moe=kind == "moe")
+        x, (k, v), a = layer_fn(lp, x, cfg=cfg, use_moe=kind == "moe")
         aux = _add_aux(aux, a)
         if cache is not None:
             cache[entry]["k"][i, :, :s] = k
@@ -259,11 +278,12 @@ def _run_layers_seq(params, x, *, cfg: ModelConfig, extra=None, cache=None):
     return x, aux
 
 
-def forward(params, tokens: torch.Tensor, *, cfg: ModelConfig, extra=None):
+def forward(params, tokens: torch.Tensor, *, cfg: ModelConfig, extra=None,
+            remat: bool = False):
     """tokens [B,S] -> (logits [B,S,V] f32, aux dict: the MoE losses summed
     over the MoE layers, empty for the other layouts)."""
     x = L.embed(params["embed"], tokens).to(cfg.activation_dtype)
-    x, aux = _run_layers_seq(params, x, cfg=cfg, extra=extra)
+    x, aux = _run_layers_seq(params, x, cfg=cfg, extra=extra, remat=remat)
     return _logits(params, x, cfg=cfg), aux
 
 

@@ -18,7 +18,7 @@ from repro_torch.common import ParamSpec, SpecTree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import xlstm as X
-from repro_torch.models.transformer import _layer, _set_layer, _stack
+from repro_torch.models.transformer import _layer, _maybe_remat, _set_layer, _stack
 
 
 def _layout(cfg: ModelConfig):
@@ -68,15 +68,20 @@ _SEQ = {"m": X.mlstm_forward, "s": X.slstm_forward}
 _STEP = {"m": X.mlstm_decode, "s": X.slstm_decode}
 
 
-def _run_seq(params, x, *, cfg: ModelConfig, cache=None):
+def _block(lp, x, *, kind: str, cfg: ModelConfig):
+    return x + _SEQ[kind](lp["mixer"], L.rmsnorm(lp["norm"], x, cfg.norm_eps), cfg=cfg)
+
+
+def _run_seq(params, x, *, cfg: ModelConfig, cache=None, remat: bool = False):
     """The blocks over a whole sequence; with ``cache``, each block's final
     state is written into its layer of the cache."""
+    block = _maybe_remat(_block, cfg, remat)
     for kind, i in _blocks(cfg):
         lp = _layer(params[f"{kind}_layers"], i)
-        h = L.rmsnorm(lp["norm"], x, cfg.norm_eps)
         if cache is None:
-            x = x + _SEQ[kind](lp["mixer"], h, cfg=cfg)
+            x = block(lp, x, kind=kind, cfg=cfg)
         else:
+            h = L.rmsnorm(lp["norm"], x, cfg.norm_eps)
             y, st = _SEQ[kind](lp["mixer"], h, cfg=cfg, return_state=True)
             _set_layer(cache[kind], i, st)
             x = x + y
@@ -88,9 +93,9 @@ def _logits(params, x, cfg):
     return L.unembed({**params.get("out", {}), **params["embed"]}, x, tied=cfg.tie_embeddings)
 
 
-def forward(params, tokens, *, cfg: ModelConfig, extra=None):
+def forward(params, tokens, *, cfg: ModelConfig, extra=None, remat: bool = False):
     x = L.embed(params["embed"], tokens).to(cfg.activation_dtype)
-    return _logits(params, _run_seq(params, x, cfg=cfg), cfg), {}
+    return _logits(params, _run_seq(params, x, cfg=cfg, remat=remat), cfg), {}
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> SpecTree:

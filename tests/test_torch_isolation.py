@@ -6,7 +6,8 @@ generate path (``EngineModel.generate``, ``sem_map``, ``sem_agg``, a paged
 decode step), a lazy ``SemFrame`` pipeline through the plan layer
 (filter -> join -> topk, optimized and collected), a ``Gateway`` session, a
 ``Subscription`` over a ``CorpusTable`` with one append, an ``Embedder``
-forward, a smoke mixtral forward (MoE) and a VLM decode step on the CPU."""
+forward, a smoke mixtral forward (MoE), a VLM decode step, two train steps
+over ``packed_batch`` and a checkpoint saved and loaded, on the CPU."""
 import os
 import re
 import subprocess
@@ -119,6 +120,27 @@ _GUARDED = textwrap.dedent("""
     logits, _ = registry.decode_step(vlm_cfg, vlm_params, torch.ones((1, 1), dtype=torch.long),
                                      cache, 5)
     assert logits.shape == (1, 1, vlm_cfg.vocab_size) and bool(torch.isfinite(logits).all())
+    import tempfile
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.data.pipeline import SyntheticSource, packed_batch
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainstep import make_train_step
+    tcfg = get_smoke("llama3.2-3b").with_(vocab_size=TOKENIZER.vocab_size)
+    tparams = registry.init_params(tcfg, torch.Generator().manual_seed(0))
+    ocfg = opt.OptimizerConfig(warmup_steps=1, total_steps=2)
+    state = opt.init_state(tparams, ocfg)
+    step = make_train_step(tcfg, ocfg, microbatches=2)
+    for s in range(2):
+        b = packed_batch(SyntheticSource(seed=0), s, batch=2, seq_len=16)
+        tparams, state, m = step(tparams, state, {k: torch.from_numpy(v) for k, v in b.items()})
+        assert np.isfinite(float(m["loss"])), m
+    with tempfile.TemporaryDirectory() as d:
+        ckpt.save(d, 2, {"params": tparams, "opt_state": state})
+        n, back = ckpt.load(d)
+    wq = tparams["layers"]["attn"]["wq"]
+    assert n == 2 and int(back["opt_state"]["step"]) == 2
+    assert torch.equal(back["params"]["layers"]["attn"]["wq"].view(torch.int16),
+                       wq.view(torch.int16))
     assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro") for m in sys.modules)
     print("modules", len(names))
 """)
@@ -130,7 +152,8 @@ def test_port_imports_and_runs_with_jax_and_repro_refused():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
     n = int(out.stdout.split("modules")[-1])
-    assert n >= 88          # every module of slices 1, 2a-2c, the plan and serving layers, moe
+    assert n >= 100         # every module of slices 1, 2a-2c, the plan and serving layers,
+                            # the model families and training
 
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|repro)(?:[.\s,]|$)", re.M)

@@ -379,6 +379,63 @@ def _assert_flash_matches_plain(q, k, v, causal, window):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+# The backward kernel against the plain version (autograd through the
+# contract): f32 within 1e-4 (five products summed in another order, scores
+# recomputed); bf16 within BWD_BF16_TOL, the limit chip_smoke.py's phase 19
+# sets between the kernel and two gross faults (the plain version rounds dP
+# and each q-head's dK/dV to bf16 before the group sum; the kernel keeps f32
+# and rounds once).
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+
+
+def _assert_flash_bwd_matches_plain(q, k, v, causal, window, seed=0):
+    out = tfa.flash_attention(q, k, v, causal=causal, window=window)
+    g = torch.Generator().manual_seed(seed)
+    dout = torch.randn(q.shape, generator=g).to("cuda", q.dtype)
+    n0 = tfa.backward_launches
+    got = tfa.flash_attention_bwd(q, k, v, out, dout, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert tfa.backward_launches == n0 + 1
+    want = tref.flash_attention_bwd_ref(q, k, v, out, dout, causal=causal, window=window)
+    tol = BWD_TOL[q.dtype]
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == b.dtype == q.dtype and a.shape == b.shape, name
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol, msg=name)
+    again = tfa.flash_attention_bwd(q, k, v, out, dout, causal=causal, window=window)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)          # no atomics: the same bits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_flash_attention_backward_kernel_matches_plain(cuda, shape, dtype, causal, window):
+    q, k, v = _attn_inputs(*shape, dtype, seed=sum(shape) + window + 1)
+    _assert_flash_bwd_matches_plain(q, k, v, causal, window, seed=sum(shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_misaligned_and_through_ops(cuda, dtype):
+    b, s, h, hk, hd = 2, 96, 4, 2, 64
+    q = _misaligned((b, s, h, hd), dtype, seed=4)
+    k = _misaligned((b, s, hk, hd), dtype, seed=5)
+    v = _misaligned((b, s, hk, hd), dtype, seed=6)
+    _assert_flash_bwd_matches_plain(q, k, v, True, 8)
+    # the ops entry differentiates through the kernel pair
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = tops.flash_attention(*leaves, causal=True, window=8)
+    dout = torch.randn_like(out)
+    n0 = tfa.backward_launches
+    got = torch.autograd.grad(out, leaves, dout)
+    assert tfa.backward_launches == n0 + 1
+    want = tfa.flash_attention_bwd(*(t.detach() for t in leaves), out.detach(), dout,
+                                   causal=True, window=8)
+    for a, b_ in zip(got, want):
+        assert torch.equal(a, b_)
+
+
 def _misaligned(shape, dtype, seed):
     """A contiguous CUDA tensor whose data starts one element past an
     allocation: in bf16 its rows are not 16-byte aligned."""
