@@ -284,6 +284,44 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 feedback), and a run checkpointed at step 2 (restored bit
                 for bit) and resumed to step 3 against the same steps run
                 straight (RESUME_TOL).
+ 20. the distribution layer — four ranks (processes) on the one card,
+                gloo carrying their CUDA tensors (NCCL refuses two ranks on
+                one device), weights drawn from ``--seed`` on every rank:
+                (a) context-parallel decode of llama3.2-3b (28 layers, bf16,
+                vocab cut to 384) under ``activation_rules`` of a (1, 4)
+                mesh, a cache of 16,384 positions (4,096 a rank, as
+                ``DTensor``s), lens 4095, 4096, 9000 and 16,000, 16
+                ``registry.decode_step``s against the whole cache through
+                ``decode_attention`` on rank 0: log-probs within
+                GEN_BF16_LOGPROB_TOL, f32 at 4 layers within 1e-4, the
+                layer-0 caches rebuilt from the shards bit for bit,
+                ``decode_attention`` 0 launches (the control 28 a step); (b)
+                one mixtral-8x22b MoE layer expert parallel over (1, 4), two
+                experts a rank, x [4, 512, 6144], against ``moe_ffn``:
+                routes identical, bf16 within MOE_BF16_TOL of the largest
+                output entry (a wrong shard offset beyond), f32 and the aux
+                losses within 1e-5; (c) llama3.2-3b as 4 pipeline stages of
+                7, 4 microbatches of [8, 512] tokens: logits against
+                ``registry.forward`` (bf16; f32 at 8 layers), the loss and
+                each leaf's gradient against ``loss_fn`` (f32 params and
+                activations at 8 layers; at 28 in bf16 both the pipeline's
+                and ``loss_fn``'s against the gradients of f32 copies of the
+                same params, a wrong-stage control beyond the limit), 7
+                ``flash_attention`` launches
+                a microbatch a stage; (d) the sharded train step over (2, 2)
+                at 4 layers (the cut), 2 steps of 4 x 512 against the
+                single-process step (f32 activations: loss, params and each
+                step's grad norm; bf16 printed), a planted fault (gradients
+                unsummed over "data") beyond the grad-norm limit,
+                ``flash_attention`` 2 x 4 and its backward 4 launches a step
+                on every rank, each rank's share of the param and state
+                bytes and its peak memory in a step; (e) a 2-layer
+                full-width checkpoint saved from a (4,) mesh and restored
+                on (2, 2) by ``restore_sharded``, each rank's shards bit
+                for bit; (f) ``python -m repro_torch.launch.train
+                --num-processes 2 --coordinator ...`` as two processes,
+                each process's final metrics against a one-process run of
+                its shard.
 
 Phases 15 and 16's launch counts are printed on a line of their own,
 ``serving launches {...}``, and each family of phases 17 and 18 its numbers
@@ -296,6 +334,7 @@ events, host launch gaps included) and ``plain_clock`` the same of
 from __future__ import annotations
 
 import argparse
+import ast
 import contextlib
 import dataclasses
 import functools
@@ -312,11 +351,12 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 import repro_torch  # noqa: E402
-from repro_torch.common import flatten, tree_to  # noqa: E402
+from repro_torch.common import flatten, tree_to, unflatten  # noqa: E402
 from repro_torch.configs import get_config, get_smoke  # noqa: E402
 from repro_torch.core.backends import synth  # noqa: E402
 from repro_torch.core.backends.simulated import (SimConfig,  # noqa: E402
@@ -4162,6 +4202,695 @@ def train_phase(args, smi: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the distribution layer, four ranks on the one card
+# ---------------------------------------------------------------------------
+
+DIST_RANKS = 4            # processes on the one card; gloo carries their CUDA tensors
+DIST_DEVICE = "cuda"
+DIST_TIMEOUT = 300        # s for the whole world (and each collective)
+DIST_ARCH = "llama3.2-3b"
+DIST_VOCAB = 384          # the vocabulary cut of phase 8
+DIST_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "dist_smoke")
+# (a) context-parallel decode: the cache's 16,384 positions, 4,096 a rank
+CP_BATCH, CP_SEQ, CP_STEPS = 4, 16384, 16
+CP_LENS = (4095, 4096, 9000, 16000)    # on and across the shard edges
+CP_F32_LAYERS = 4
+CP_F32_TOL = 1e-4
+# (b) one MoE layer of mixtral-8x22b.  bf16: within MOE_BF16_TOL of the
+# output's largest entry; a wrong shard offset (each rank holding its
+# neighbour's experts) must land beyond it.  f32: MOE_F32_TOL of the largest
+# entry, the aux losses within MOE_F32_TOL.
+MOE_ARCH, MOE_ROWS = "mixtral-8x22b", (4, 512)
+MOE_BF16_TOL, MOE_F32_TOL = 1e-2, 1e-5
+# (c) the pipeline: 28 layers over 4 stages of 7
+PP_TOKENS, PP_MICRO, PP_F32_LAYERS = (8, 512), 4, 8
+PP_F32_TOL, PP_LOSS_TOL, PP_GRAD_TOL = 1e-4, 1e-3, 1e-2
+# bf16 at the whole depth: both the pipeline's and the control's gradients
+# against those of f32 copies of the same bf16 params (f32 activations)
+PP_BF16_GRAD_TOL = 2e-2
+# (d) the sharded train step (the reference test's bounds); (e) restore
+TS_LAYERS, TS_STEPS, TS_BATCH = 4, 2, (4, 512)
+TS_LOSS_TOL, TS_PARAM_TOL, TS_GNORM_TOL = 1e-3, 5e-3, 1e-4   # the last relative
+RS_LAYERS = 2
+
+
+def dist_gen(seed: int) -> torch.Generator:
+    return torch.Generator(device=DIST_DEVICE).manual_seed(seed)
+
+
+def cp_cache(cfg, sh, seed: int, local: bool) -> dict:
+    """The decode cache's K and V, drawn layer by layer on the card from the
+    seed: each rank's shard as ``DTensor``s (``local``) or the whole."""
+    shape = (cfg.num_layers, CP_BATCH, CP_SEQ, cfg.num_kv_heads, cfg.hd)
+    rows = sh.local_slices(shape)[1:]
+    out = {}
+    for j, name in enumerate(("k", "v")):
+        t = torch.empty(sh.shard_shape(shape) if local else shape, dtype=cfg.activation_dtype,
+                        device=DIST_DEVICE)
+        for layer in range(cfg.num_layers):
+            full = torch.randn(shape[1:], generator=dist_gen(seed * 1000 + 2 * layer + j),
+                               device=DIST_DEVICE, dtype=cfg.activation_dtype)
+            t[layer] = full[rows] if local else full
+        out[name] = sh.dtensor(t, shape) if local else t
+    return {"self": out}
+
+
+@torch.no_grad()
+def cp_steps(cfg, params, cache, seed: int) -> tuple[torch.Tensor, float]:
+    """CP_STEPS ``registry.decode_step``s from CP_LENS: (log-probs [B, steps,
+    V] f32, wall s a step)."""
+    toks = torch.randint(0, cfg.vocab_size, (CP_STEPS, CP_BATCH, 1),
+                         generator=dist_gen(seed + 7), device=DIST_DEVICE)
+    lens = torch.tensor(CP_LENS, dtype=torch.int32, device=DIST_DEVICE)
+    out = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(CP_STEPS):
+        logits, cache = registry.decode_step(cfg, params, toks[i], cache, lens + i)
+        out.append(torch.log_softmax(logits.float(), dim=-1))
+    torch.cuda.synchronize()
+    return torch.cat(out, dim=1), (time.perf_counter() - t0) / CP_STEPS
+
+
+def cp_rank(params, rank: int, seed: int) -> dict:
+    """(a) context-parallel decode of llama3.2-3b over a (1, 4) mesh, the
+    cache's sequence over ``model``; rank 0 runs the same steps on the whole
+    cache through ``decode_attention`` as the control."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_test_mesh
+    mesh = make_test_mesh((1, DIST_RANKS), ("data", "model"))
+    base = get_config(DIST_ARCH).with_(vocab_size=DIST_VOCAB, decode_cp=True)
+    res = {}
+    for dt, cfg, p in (("bf16", base, params),
+                       ("f32", base.with_(num_layers=CP_F32_LAYERS, dtype="float32"),
+                        cut_depth(params, {"layers": CP_F32_LAYERS}))):
+        shape = (cfg.num_layers, CP_BATCH, CP_SEQ, cfg.num_kv_heads, cfg.hd)
+        spec = shd.resolve_pspec(shape, ("layers", "batch", "kv_seq", "kv_heads", "qkv"), mesh,
+                                 "serve_replicated")
+        sh = shd.NamedSharding(mesh, spec)
+        cache = cp_cache(cfg, sh, seed, local=True)
+        zero_launches()
+        with shd.activation_rules(mesh, "serve_replicated"):
+            got, step_s = cp_steps(cfg, p, cache, seed)
+        launches = kernel_launches()
+        k, v = (cache["self"][n].to_local() for n in ("k", "v"))
+        layer0 = shd.NamedSharding(mesh, shd.P(*spec[1:]))
+        k0, v0 = layer0.gather(k[0]), layer0.gather(v[0])
+        r = {"spec": str(spec), "local_layer_shape": list(k.shape[1:]),
+             "local_cache_gib": 2 * k.numel() * k.element_size() / 2**30,
+             "step_ms": step_s * 1e3, "decode_attention": launches["decode_attention"],
+             "flash_attention": launches["flash_attention"]}
+        del cache, k, v
+        if rank == 0:
+            whole = cp_cache(cfg, sh, seed, local=False)
+            zero_launches()
+            want, wstep = cp_steps(cfg, p, whole, seed)     # no rules: the ordinary path
+            r.update(control_step_ms=wstep * 1e3,
+                     control_decode_attention=kernel_launches()["decode_attention"],
+                     logprob_err=float((got - want).abs().max()),
+                     layer0_bits_equal=same_bits(k0, whole["self"]["k"][0])
+                     and same_bits(v0, whole["self"]["v"][0]))
+            del whole
+        res[dt] = r
+        free_card()
+        tdist.barrier()
+    return res
+
+
+def expert_params(cfg, experts, seed: int) -> dict:
+    """One MoE layer's router and the listed experts' weights, each expert
+    drawn on the card from its own seed at the stack's fan-in scale (the
+    whole layer on rank 0, two experts on each rank)."""
+    specs = moe_mod.moe_spec(cfg)
+    out = {"router": specs[("router",)].materialize(dist_gen(seed))}
+    for j, name in enumerate(("w_gate", "w_up", "w_down")):
+        s = specs[(name,)]
+        scale = 1.0 / math.sqrt(math.prod(s.shape[:-1]))
+        out[name] = torch.stack([
+            (torch.randn(s.shape[1:], generator=dist_gen(seed * 100 + 3 * e + j + 1),
+                         device=DIST_DEVICE) * scale).to(s.dtype) for e in experts])
+    return out
+
+
+@torch.no_grad()
+def moe_rank(rank: int, seed: int) -> dict:
+    """(b) one mixtral-8x22b MoE layer, expert parallel over (1, 4): two
+    experts a rank, against ``moe_ffn`` on rank 0."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_test_mesh
+    cfg = get_config(MOE_ARCH)
+    mesh = make_test_mesh((1, DIST_RANKS), ("data", "model"))
+    per = cfg.num_experts // DIST_RANKS
+    mine = expert_params(cfg, range(rank * per, (rank + 1) * per), seed)
+    nxt = (rank + 1) % DIST_RANKS
+    wrong = expert_params(cfg, range(nxt * per, (nxt + 1) * per), seed)
+    x = torch.randn(*MOE_ROWS, cfg.d_model, generator=dist_gen(seed + 3), device=DIST_DEVICE)
+    res = {"local_expert_gib": sum(mine[k].numel() * mine[k].element_size()
+                                   for k in ("w_gate", "w_up", "w_down")) / 2**30}
+    ids = moe_mod.route(mine, x.to(cfg.activation_dtype), cfg=cfg)[3]
+    ids0 = ids.clone()
+    tdist.broadcast(ids0, src=0)
+    flips = torch.tensor(float((ids != ids0).sum()), device=DIST_DEVICE)
+    tdist.all_reduce(flips)
+    res["route_flips_across_ranks"] = float(flips)
+    out = {}
+    for dt in ("bf16", "f32"):
+        xd = x.to(torch.bfloat16 if dt == "bf16" else torch.float32)
+        c = cfg.with_(dtype="bfloat16" if dt == "bf16" else "float32")
+        with shd.activation_rules(mesh, "default"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y, aux = moe_mod.moe_ffn(mine, xd, cfg=c)
+            torch.cuda.synchronize()
+            out[dt] = (y, aux, time.perf_counter() - t0)
+            if dt == "bf16":
+                yw, _ = moe_mod.moe_ffn(wrong, xd, cfg=c)
+    del mine, wrong
+    free_card()
+    if rank == 0:
+        whole = expert_params(cfg, range(cfg.num_experts), seed)
+        res["control_ids_equal"] = bool(torch.equal(
+            moe_mod.route(whole, x.to(cfg.activation_dtype), cfg=cfg)[3], ids))
+        for dt, (y, aux, wall) in out.items():
+            xd = x.to(torch.bfloat16 if dt == "bf16" else torch.float32)
+            c = cfg.with_(dtype="bfloat16" if dt == "bf16" else "float32")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            yc, auxc = moe_mod.moe_ffn(whole, xd, cfg=c)
+            torch.cuda.synchronize()
+            scale = float(yc.float().abs().max())
+            res[dt] = {"rel_err": float((y.float() - yc.float()).abs().max()) / scale,
+                       "lb_err": float((aux["moe_lb"] - auxc["moe_lb"]).abs()),
+                       "z_err": float((aux["moe_z"] - auxc["moe_z"]).abs()),
+                       "ms": wall * 1e3, "control_ms": (time.perf_counter() - t0) * 1e3}
+            if dt == "bf16":
+                res[dt]["wrong_offset_rel_err"] = float((yw.float() - yc.float()).abs().max()) \
+                    / scale
+        del whole
+    tdist.barrier()
+    return res
+
+
+def stage_rows(params: dict, rows: slice) -> dict:
+    """``params`` with the layer stack cut to ``rows`` (views)."""
+    def cut(tree):
+        return {k: cut(v) if isinstance(v, dict) else v[rows] for k, v in tree.items()}
+    return {**params, "layers": cut(params["layers"])}
+
+
+def rel_errs(got: dict, want: dict, per: int, shift: int = 0) -> dict:
+    """{leaf[stage s]: max |got - want| / max |want|}: ``got`` holds each
+    stage's gradients (stage s's layer slice under its stage), ``want``
+    the whole; ``shift`` holds stage s against stage s + shift's slice (a
+    wrong-stage control: layer leaves only)."""
+    out = {}
+    for (path, s), g in got.items():
+        if path[0] != "layers" and shift:
+            continue
+        w = want[path]
+        if path[0] == "layers":
+            t = (s + shift) % DIST_RANKS
+            w = w[t * per:(t + 1) * per]
+        w = w.float()
+        out["/".join(path) + (f"[stage {s}]" if path[0] == "layers" else "")] = float(
+            (g.float() - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+    return out
+
+
+def whole_grads(cfg, params, tokens, labels, cast) -> tuple[float, dict]:
+    """``loss_fn`` and its gradients on one rank, of the leaves ``cast``
+    from the params."""
+    full = {k: cast(v).requires_grad_() for k, v in flatten(params).items()}
+    wl, _ = trainstep.loss_fn(cfg, unflatten(full), tokens, labels)
+    wg = dict(zip(full, torch.autograd.grad(wl, list(full.values()))))
+    return wl.item(), wg
+
+
+def pp_grads(cfg, mesh, params, rows, tokens, labels, rank: int, pairs: list,
+             cast, f32_witness: bool = False) -> dict:
+    """``make_pp_loss`` and its gradients on this rank's stage (leaves
+    ``cast`` from the params), each stage's layer gradients sent to rank 0,
+    which holds them and the others against ``loss_fn``'s on the whole
+    params: {loss, control_loss, grad_rel_err, worst leaf} on rank 0.
+    ``f32_witness``: rank 0 also holds both (the pipeline's and the
+    control's) against the gradients of f32 copies of the same params in
+    f32 activations, and the pipeline's stage s against stage s + 1's f32
+    slice (a wrong-stage control)."""
+    from repro_torch.dist.pipeline_parallel import make_pp_loss
+    leaves = {k: cast(v).requires_grad_() for k, v in flatten(stage_rows(params, rows)).items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = make_pp_loss(cfg, mesh, n_micro=PP_MICRO)(unflatten(leaves), tokens, labels)
+    grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    torch.cuda.synchronize()
+    res = {"loss": loss.item(), "loss_and_grads_ms": (time.perf_counter() - t0) * 1e3}
+    del leaves, loss
+    per = rows.stop - rows.start
+    if rank > 0:
+        for path in sorted(grads):
+            if path[0] == "layers":
+                tdist.broadcast(grads[path].contiguous(), src=rank, group=pairs[rank - 1])
+        return res
+    got = {}
+    for s in range(DIST_RANKS):
+        for path in sorted(grads):
+            if path[0] != "layers" and s > 0:
+                continue
+            g = grads[path]
+            if s > 0:
+                g = torch.empty_like(g)
+                tdist.broadcast(g, src=s, group=pairs[s - 1])
+            got[(path, s)] = g
+    del grads
+    if f32_witness:       # first, while the card holds the least
+        c32 = cfg.with_(dtype="float32")
+        _, w32 = whole_grads(c32, params, tokens, labels, lambda t: t.detach().float())
+        free_card()
+    res["control_loss"], wg = whole_grads(cfg, params, tokens, labels, cast)
+    worst = rel_errs(got, wg, per)
+    res["grad_rel_err"] = max(worst.values())
+    res["grad_worst_leaf"] = max(worst, key=worst.get)
+    if f32_witness:
+        ctl = rel_errs({(p, 0): g for p, g in wg.items()}, w32, cfg.num_layers)
+        for name, errs in (("pp_vs_f32", rel_errs(got, w32, per)), ("control_vs_f32", ctl),
+                           ("wrong_stage_vs_f32", rel_errs(got, w32, per, shift=1))):
+            res[name] = max(errs.values())
+            res[name + "_worst"] = max(errs, key=errs.get)
+            res[name + "_embedding"] = errs.get("embed/embedding")
+    return res
+
+
+def pp_rank(params, rank: int, seed: int) -> dict:
+    """(c) llama3.2-3b's 28 layers as 4 pipeline stages of 7: the logits,
+    the loss and each stage's gradients against the single-device forward
+    and ``loss_fn`` on rank 0.  The gradients twice: of f32 copies of the
+    params in f32 activations at PP_F32_LAYERS (held to PP_GRAD_TOL: the
+    same sums in another order), and of the bf16 params in bf16 at the
+    whole depth, where both the pipeline's and the control's are held
+    against the gradients of f32 copies of those bf16 params (PP_BF16_GRAD_TOL,
+    with a wrong-stage control beyond it)."""
+    from repro_torch.dist.pipeline_parallel import pp_forward
+    from repro_torch.launch.mesh import make_test_mesh
+    mesh = make_test_mesh((DIST_RANKS,), ("pod",))
+    cfg = get_config(DIST_ARCH).with_(vocab_size=DIST_VOCAB)
+    g = dist_gen(seed + 11)
+    tokens = torch.randint(0, cfg.vocab_size, PP_TOKENS, generator=g, device=DIST_DEVICE)
+    labels = torch.randint(0, cfg.vocab_size, PP_TOKENS, generator=g, device=DIST_DEVICE)
+    per = cfg.num_layers // DIST_RANKS
+    rows = slice(rank * per, (rank + 1) * per)
+    res = {}
+    zero_launches()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = pp_forward(cfg, mesh, stage_rows(params, rows), tokens, n_micro=PP_MICRO)
+        torch.cuda.synchronize()
+    res["forward_ms"] = (time.perf_counter() - t0) * 1e3
+    res["flash_attention"] = kernel_launches()["flash_attention"]
+    c8 = cfg.with_(num_layers=PP_F32_LAYERS, dtype="float32")
+    p8 = cut_depth(params, {"layers": PP_F32_LAYERS})
+    r8 = slice(rank * (PP_F32_LAYERS // DIST_RANKS), (rank + 1) * (PP_F32_LAYERS // DIST_RANKS))
+    with torch.no_grad():
+        logits8 = pp_forward(c8, mesh, stage_rows(p8, r8), tokens, n_micro=PP_MICRO)
+    if rank == 0:
+        with torch.no_grad():
+            want, _ = registry.forward(cfg, params, tokens)
+            want8, _ = registry.forward(c8, p8, tokens)
+        res["logprob_err"] = float((torch.log_softmax(logits, -1)
+                                    - torch.log_softmax(want, -1)).abs().max())
+        res["f32_logprob_err"] = float((torch.log_softmax(logits8, -1)
+                                        - torch.log_softmax(want8, -1)).abs().max())
+        del want, want8
+    del logits, logits8
+    pairs = [tdist.new_group([0, s]) for s in range(1, DIST_RANKS)]
+    res["grads_f32"] = pp_grads(c8, mesh, p8, r8, tokens, labels, rank, pairs,
+                                lambda t: t.detach().float())
+    free_card()
+    res["grads_bf16"] = pp_grads(cfg, mesh, params, rows, tokens, labels, rank, pairs,
+                                 lambda t: t.detach(), f32_witness=True)
+    free_card()
+    tdist.barrier()
+    return res
+
+
+def ts_batches(cfg, seed: int) -> list[dict]:
+    g = dist_gen(seed + 13)
+    return [{k: torch.randint(0, cfg.vocab_size, TS_BATCH, generator=g, device=DIST_DEVICE)
+             for k in ("tokens", "labels")} for _ in range(TS_STEPS)]
+
+
+def nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in flatten(tree).values())
+
+
+def train_step_rank(rank: int, seed: int) -> dict:
+    """(d) the sharded train step over (2, 2) ("data", "model") at
+    llama3.2-3b's widths, 4 layers: each rank stores a quarter or so of the
+    params and state; rank 0 runs the single-device step as the control of
+    the trajectory (losses, params after the last step), and before each
+    sharded step the single-device gradient's norm of the params the
+    sharded step starts from (gathered), the control of that step's grad
+    norm.  In f32 a planted fault follows: one step from the same start
+    with each gradient left unsummed over "data" (the trainstep's
+    ``_grad_shard`` swapped here), whose grad norm must land beyond
+    TS_GNORM_TOL."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist import trainstep as dts
+    from repro_torch.launch.mesh import make_test_mesh
+    mesh = make_test_mesh((2, 2), ("data", "model"))
+    base = get_config(DIST_ARCH).with_(vocab_size=DIST_VOCAB, num_layers=TS_LAYERS)
+    ocfg = opt.OptimizerConfig(total_steps=TS_STEPS, warmup_steps=0)
+    res = {}
+    for dt in ("float32", "bfloat16"):
+        cfg = base.with_(dtype=dt)
+        pspecs = registry.param_specs(cfg)
+        psh = shd.spec_shardings(pspecs, mesh)
+        ssh = shd.spec_shardings(opt.state_specs(pspecs, ocfg), mesh)
+        params = registry.init_params(cfg, dist_gen(seed))
+        state = opt.init_state(params, ocfg)
+
+        def run(n_steps: int, r: dict):
+            lp, ls = shd.place_tree(params, psh), shd.place_tree(state, ssh)
+            step = dts.make_sharded_train_step(cfg, ocfg, mesh)
+            r.update(grad_norms=[], same_params_grad_norms=[], step_s=[], losses=[],
+                     launches=[0, 0])
+            for batch in ts_batches(cfg, seed)[:n_steps]:
+                start = shd.gather_tree(lp, psh)
+                if rank == 0:
+                    g = trainstep.grads_and_loss(cfg, start, batch["tokens"],
+                                                 batch["labels"].long())[2]
+                    r["same_params_grad_norms"].append(float(opt.global_norm(g)))
+                    del g
+                del start
+                free_card()
+                torch.cuda.synchronize()
+                base_bytes = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                n0 = kernel_launches()
+                t0 = time.perf_counter()
+                lp, ls, m = step(lp, ls, batch)
+                torch.cuda.synchronize()
+                r["step_s"].append(time.perf_counter() - t0)
+                n1 = kernel_launches()      # the step's own, not the control's
+                r["launches"] = [a + n1[k] - n0[k] for a, k in zip(
+                    r["launches"], ("flash_attention", "flash_attention_bwd"))]
+                r["step_peak_gib"] = max(r.get("step_peak_gib", 0.0), (
+                    torch.cuda.max_memory_allocated() - base_bytes) / 2**30)
+                r["losses"].append(float(m["loss"]))
+                r["grad_norms"].append(float(m["grad_norm"]))
+            if rank == 0:
+                r["grad_norm_rel_err"] = max(abs(a - b) / b for a, b in zip(
+                    r["grad_norms"], r["same_params_grad_norms"]))
+            return lp, ls
+
+        r = {}
+        lp, ls = run(TS_STEPS, r)
+        r.update(local_param_share=nbytes(lp) / nbytes(params),
+                 local_state_share=nbytes(ls) / nbytes(state))
+        got = shd.gather_tree(lp, psh)
+        del lp, ls
+        if dt == "float32":
+            real = dts._grad_shard
+            dts._grad_shard = lambda g, mesh, dp, slices: g.float()[slices]
+            try:
+                r["unsummed"] = {}
+                run(1, r["unsummed"])
+            finally:
+                dts._grad_shard = real
+        if rank == 0:
+            ref_step = trainstep.make_train_step(cfg, ocfg)
+            wl = []
+            for batch in ts_batches(cfg, seed):
+                params, state, m = ref_step(params, state, batch)
+                wl.append(float(m["loss"]))
+            r["control_losses"] = wl
+            r["loss_err"] = max(abs(a - b) for a, b in zip(r["losses"], wl))
+            fg, fw = flatten(got), flatten(params)
+            r["param_err"] = max(float((fg[k].float() - fw[k].float()).abs().max()) for k in fw)
+        res[dt] = r
+        del params, state, got
+        free_card()
+        tdist.barrier()
+    return res
+
+
+def restore_rank(rank: int, seed: int) -> dict:
+    """(e) a 2-layer full-width llama3.2-3b checkpoint saved from a (4,)
+    "data" mesh and restored on (2, 2): each rank's shards against the saved
+    arrays' slices, bit for bit."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_test_mesh
+    cfg = get_config(DIST_ARCH).with_(num_layers=RS_LAYERS)
+    pspecs = registry.param_specs(cfg)
+    d = os.path.join(DIST_DIR, "ckpt")
+    m1 = make_test_mesh((DIST_RANKS,), ("data",))
+    sh1 = shd.spec_shardings(pspecs, m1)
+    local1 = shd.place_tree(registry.init_params(cfg, dist_gen(seed)), sh1)
+    free_card()
+    whole = shd.gather_tree(local1, sh1)
+    res = {"saved_gib": nbytes(whole) / 2**30}
+    if rank == 0:
+        t0 = time.perf_counter()
+        ckpt.save(d, 1, {"params": whole})
+        res["save_s"] = time.perf_counter() - t0
+    del whole, local1
+    free_card()
+    tdist.barrier()
+    m2 = make_test_mesh((2, 2), ("data", "model"))
+    sh2 = flatten(shd.spec_shardings(pspecs, m2))
+    t0 = time.perf_counter()
+    step, out = ckpt.restore_sharded(d, {"params": unflatten(sh2)})
+    res["restore_s"] = time.perf_counter() - t0
+    _, saved = ckpt.load(d)
+    saved = flatten(saved["params"])
+    got = flatten(out["params"])
+    res["step"] = step
+    res["bits_equal"] = all(
+        same_bits(got[p].cpu(), saved[p][sh2[p].local_slices(saved[p].shape)].contiguous())
+        for p in saved)
+    res["local_share"] = nbytes(got) / nbytes(saved)
+    tdist.barrier()
+    return res
+
+
+def dist_rank(rank: int, seed: int) -> None:
+    """One rank of phase 20's world: a process of its own on the card."""
+    import datetime
+    repro_torch.set_device(DIST_DEVICE)
+    tdist.init_process_group("gloo", init_method=f"file://{os.path.join(DIST_DIR, 'rdzv')}",
+                            world_size=DIST_RANKS, rank=rank,
+                            timeout=datetime.timedelta(seconds=DIST_TIMEOUT))
+    try:
+        laps = {}
+        t0 = time.perf_counter()
+        params = registry.init_params(get_config(DIST_ARCH).with_(vocab_size=DIST_VOCAB),
+                                      dist_gen(seed))
+        res = {"a": cp_rank(params, rank, seed)}
+        laps["a"] = time.perf_counter() - t0
+        res["c"] = pp_rank(params, rank, seed)
+        laps["c"] = time.perf_counter() - t0 - sum(laps.values())
+        del params
+        free_card()
+        for key, fn in (("b", moe_rank), ("d", train_step_rank), ("e", restore_rank)):
+            res[key] = fn(rank, seed)
+            free_card()
+            laps[key] = time.perf_counter() - t0 - sum(laps.values())
+        res["laps_s"] = laps
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        with open(os.path.join(DIST_DIR, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    except BaseException:
+        # spawn reports one rank's error; each rank's own goes to a file
+        import traceback
+        with open(os.path.join(DIST_DIR, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        tdist.destroy_process_group()
+
+
+def launch_train_runs(smi: str) -> dict:
+    """(f) ``python -m repro_torch.launch.train`` as two processes of one
+    world (``--coordinator``), each against a one-process run with its
+    ``--process-id`` as the data shard; all four at once."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.path.join(root, "src")}
+    base = ["--smoke", "--device", DIST_DEVICE, "--steps", "2", "--batch", "2",
+            "--seq-len", "32", "--num-processes", "2"]
+    runs = {}
+    for i in range(2):
+        for kind, extra in (("world", ["--coordinator", f"127.0.0.1:{port}"]), ("alone", [])):
+            argv = [*base, "--process-id", str(i), *extra,
+                    "--ckpt-dir", os.path.join(DIST_DIR, f"train_{kind}{i}")]
+            runs[(kind, i)] = (argv, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.train", *argv], env=env, cwd=root,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    finals = {}
+    for key, (argv, p) in runs.items():
+        out, err = p.communicate(timeout=300)
+        log(f"$ python -m repro_torch.launch.train {' '.join(argv)}  (exit {p.returncode})")
+        assert p.returncode == 0, err[-4000:]
+        finals[key] = ast.literal_eval(out.split("[train] final:")[-1].strip())
+        log(f"  final {finals[key]}")
+    for i in range(2):
+        w, a = finals[("world", i)], finals[("alone", i)]
+        assert w["last_step"] == a["last_step"] == 2, (w, a)
+        for k in ("loss", "grad_norm"):
+            assert abs(w[k] - a[k]) <= RESUME_TOL * abs(a[k]), (i, k, w, a)
+    assert finals[("world", 0)]["loss"] != finals[("world", 1)]["loss"], finals
+    log(f"launch/train --num-processes 2 on {smi}: each process's final metrics equal its "
+        f"shard's one-process run")
+    return {f"{k}{i}": v for (k, i), v in finals.items()}
+
+
+def dist_phase(args, smi: str) -> dict:
+    """Phase 20: the distribution layer across DIST_RANKS processes on the card."""
+    import torch.multiprocessing as mp
+    free_card()
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    os.makedirs(DIST_DIR)
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(dist_rank, args=(args.seed,), nprocs=DIST_RANKS,
+                             start_method="spawn", join=False)
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > DIST_TIMEOUT:
+                raise TimeoutError(f"phase 20's world ran past {DIST_TIMEOUT} s")
+    except BaseException:
+        for r in range(DIST_RANKS):
+            err = os.path.join(DIST_DIR, f"rank{r}.err")
+            if os.path.exists(err):
+                with open(err) as f:
+                    log(f"rank {r}: {f.read()[-3000:]}")
+        raise
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    world_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(DIST_RANKS):
+        with open(os.path.join(DIST_DIR, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    r0 = ranks[0]
+    log(f"phase 20 on {smi}: {DIST_RANKS} ranks (processes) on one card, gloo carrying CUDA "
+        f"tensors; the world took {world_s:.1f} s; per-rank peak memory "
+        + ", ".join(f"{r['peak_gib']:.2f}" for r in ranks) + " GiB; rank 0's laps "
+        + json.dumps({k: round(v, 1) for k, v in r0["laps_s"].items()}))
+    cfg = get_config(DIST_ARCH)
+    # (a)
+    for dt, tol in (("bf16", GEN_BF16_LOGPROB_TOL), ("f32", CP_F32_TOL)):
+        a = r0["a"][dt]
+        layers = cfg.num_layers if dt == "bf16" else CP_F32_LAYERS
+        log(f"(a) {DIST_ARCH} context-parallel decode on {smi}, {dt}, {layers} layers (vocab "
+            f"cut to {DIST_VOCAB}), batch {CP_BATCH}, cache {CP_SEQ} positions, lens {CP_LENS}, "
+            f"{CP_STEPS} steps: spec {a['spec']}, each rank's layer shard "
+            f"{[r['a'][dt]['local_layer_shape'] for r in ranks]} "
+            f"({a['local_cache_gib']:.3f} GiB of K+V), log-probs against the whole-cache "
+            f"control {a['logprob_err']:.4g} (limit {tol}), layer-0 caches bit for bit "
+            f"{a['layer0_bits_equal']}; a step {a['step_ms']:.2f} ms (control "
+            f"{a['control_step_ms']:.2f} ms); decode_attention launches "
+            f"{[r['a'][dt]['decode_attention'] for r in ranks]} (control "
+            f"{a['control_decode_attention']})")
+        assert a["logprob_err"] <= tol, a
+        assert a["layer0_bits_equal"], a
+        for r in ranks:
+            ra = r["a"][dt]
+            assert ra["local_layer_shape"] == [CP_BATCH, CP_SEQ // DIST_RANKS,
+                                               cfg.num_kv_heads, cfg.hd], ra
+            assert ra["decode_attention"] == 0 and ra["flash_attention"] == 0, ra
+        assert a["control_decode_attention"] == layers * CP_STEPS, a
+    # (b)
+    b = r0["b"]
+    log(f"(b) {MOE_ARCH} one MoE layer (d 6144, ff 16384, 8 experts, top-2) at x "
+        f"{list(MOE_ROWS) + [6144]}, expert parallel over (1, {DIST_RANKS}) on {smi}: local "
+        f"experts {[round(r['b']['local_expert_gib'], 3) for r in ranks]} GiB a rank; routes "
+        f"identical to the control's {b['control_ids_equal']}, flips across ranks "
+        f"{b['route_flips_across_ranks']:.0f}; bf16 {json.dumps(b['bf16'])} (limit "
+        f"{MOE_BF16_TOL}); f32 {json.dumps(b['f32'])} (limit {MOE_F32_TOL})")
+    assert b["control_ids_equal"] and b["route_flips_across_ranks"] == 0, b
+    assert b["bf16"]["rel_err"] <= MOE_BF16_TOL < b["bf16"]["wrong_offset_rel_err"], b
+    assert b["f32"]["rel_err"] <= MOE_F32_TOL, b
+    assert b["f32"]["lb_err"] <= MOE_F32_TOL and b["f32"]["z_err"] <= MOE_F32_TOL, b
+    # (c)
+    c = r0["c"]
+    per = cfg.num_layers // DIST_RANKS
+    gf, gb = c["grads_f32"], c["grads_bf16"]
+    log(f"(c) {DIST_ARCH} pipeline, {cfg.num_layers} layers over {DIST_RANKS} stages of {per}, "
+        f"{PP_MICRO} microbatches of tokens {list(PP_TOKENS)} on {smi}: log-probs against "
+        f"registry.forward {c['logprob_err']:.4g} (limit {GEN_BF16_LOGPROB_TOL}), f32 at "
+        f"{PP_F32_LAYERS} layers {c['f32_logprob_err']:.3g} (limit {PP_F32_TOL}); "
+        f"make_pp_loss and its gradients against loss_fn: f32 params and activations at "
+        f"{PP_F32_LAYERS} layers, loss "
+        f"{gf['loss']:.6f} against {gf['control_loss']:.6f}, gradients within "
+        f"{gf['grad_rel_err']:.3g} of each leaf's largest entry (worst {gf['grad_worst_leaf']}, "
+        f"limit {PP_GRAD_TOL}); bf16 at {cfg.num_layers} layers, loss {gb['loss']:.6f} against "
+        f"{gb['control_loss']:.6f}, "
+        f"gradients {gb['grad_rel_err']:.4g} from the control's (worst {gb['grad_worst_leaf']}); "
+        f"against the gradients of f32 copies of the same bf16 params in f32 activations: "
+        f"the pipeline's {gb['pp_vs_f32']:.4g} (worst {gb['pp_vs_f32_worst']}, embedding "
+        f"{gb['pp_vs_f32_embedding']:.4g}; limit {PP_BF16_GRAD_TOL}), the control's "
+        f"{gb['control_vs_f32']:.4g} (worst {gb['control_vs_f32_worst']}, embedding "
+        f"{gb['control_vs_f32_embedding']:.4g}), each stage against the next stage's "
+        f"{gb['wrong_stage_vs_f32']:.4g} (wrong-stage control); "
+        f"flash_attention launches per rank {[r['c']['flash_attention'] for r in ranks]}; "
+        f"forward {[round(r['c']['forward_ms'], 1) for r in ranks]} ms, loss and gradients "
+        f"bf16 {[round(r['c']['grads_bf16']['loss_and_grads_ms'], 1) for r in ranks]} ms")
+    assert c["logprob_err"] <= GEN_BF16_LOGPROB_TOL and c["f32_logprob_err"] <= PP_F32_TOL, c
+    for gr in (gf, gb):
+        assert abs(gr["loss"] - gr["control_loss"]) <= PP_LOSS_TOL, c
+    assert gf["grad_rel_err"] <= PP_GRAD_TOL, c
+    assert gb["pp_vs_f32"] <= PP_BF16_GRAD_TOL < gb["wrong_stage_vs_f32"], gb
+    assert all(r["c"]["flash_attention"] == per * PP_MICRO for r in ranks), ranks
+    # (d)
+    log(f"cut: (d) {DIST_ARCH} at {TS_LAYERS} of {cfg.num_layers} layers, vocab {DIST_VOCAB}")
+    base = cfg.with_(num_layers=TS_LAYERS)
+    for dt in ("float32", "bfloat16"):
+        d = r0["d"][dt]
+        log(f"(d) sharded train step over (2, 2) (\"data\", \"model\") on {smi}, {dt} "
+            f"activations, {TS_STEPS} steps of {list(TS_BATCH)}: losses {d['losses']} against "
+            f"the single-process step's {d['control_losses']} (err {d['loss_err']:.3g}), params "
+            f"{d['param_err']:.3g} from it; shares of the param bytes a rank holds "
+            f"{[round(r['d'][dt]['local_param_share'], 4) for r in ranks]}, of the state bytes "
+            f"{[round(r['d'][dt]['local_state_share'], 4) for r in ranks]}; grad norms "
+            f"{d['grad_norms']} against the single-device gradient's of the same params "
+            f"{d['same_params_grad_norms']} (relative err {d['grad_norm_rel_err']:.3g}"
+            + (f", limit {TS_GNORM_TOL}; the planted fault, gradients unsummed over \"data\", "
+               f"{d['unsummed']['grad_norms'][0]} against "
+               f"{d['unsummed']['same_params_grad_norms'][0]}: "
+               f"{d['unsummed']['grad_norm_rel_err']:.3g}" if dt == "float32" else "")
+            + f"); per-rank peak memory of a step above its start "
+            f"{[round(r['d'][dt]['step_peak_gib'], 3) for r in ranks]} GiB; launches "
+            f"[flash_attention, flash_attention_bwd] per rank "
+            f"{[r['d'][dt]['launches'] for r in ranks]}; step wall "
+            f"{[round(s, 3) for s in d['step_s']]} s")
+        want = [TS_STEPS * (1 + base.remat) * TS_LAYERS, TS_STEPS * TS_LAYERS]
+        assert all(r["d"][dt]["launches"] == want for r in ranks), (dt, want, ranks)
+    d32 = r0["d"]["float32"]
+    assert d32["loss_err"] <= TS_LOSS_TOL and d32["param_err"] <= TS_PARAM_TOL, d32
+    assert d32["grad_norm_rel_err"] <= TS_GNORM_TOL < d32["unsummed"]["grad_norm_rel_err"], d32
+    assert all(0.2 <= r["d"]["float32"]["local_param_share"] <= 0.3 for r in ranks), ranks
+    # (e)
+    e = [r["e"] for r in ranks]
+    log(f"(e) restore_sharded on {smi}: a {RS_LAYERS}-layer full-width {DIST_ARCH} checkpoint "
+        f"({e[0]['saved_gib']:.3f} GiB) saved from a ({DIST_RANKS},) \"data\" mesh in "
+        f"{e[0]['save_s']:.2f} s, restored on (2, 2) in "
+        f"{[round(x['restore_s'], 2) for x in e]} s: each rank's shards bit for bit "
+        f"{[x['bits_equal'] for x in e]}, shares {[round(x['local_share'], 4) for x in e]}")
+    assert all(x["bits_equal"] and x["step"] == 1 for x in e), e
+    # (f)
+    f = launch_train_runs(smi)
+    shutil.rmtree(os.path.join(DIST_DIR, "ckpt"), ignore_errors=True)
+    log(f"phase 20 on {smi}: {time.perf_counter() - t0:.1f} s")
+    return {"ranks": ranks, "launch_train": f}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -4321,6 +5050,10 @@ def main() -> None:
     launches["flash_attention_bwd"] = train["launches"]["flash_attention_bwd"]
     log(f"{TRAIN} training on {smi}: {json.dumps(train)}")
     lap("19 reduced depth: compress_grads, checkpoint and resume")
+
+    # 20. the distribution layer across four ranks on the card
+    dist_phase(args, smi)
+    lap("20 distribution layer")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"device: {smi}")

@@ -14,8 +14,8 @@ bits through ``torch.Tensor.view(torch.int16)``, so it needs neither
 ``AsyncCheckpointer`` snapshots to host memory synchronously (one copy off
 the card) and does the disk I/O on a background thread, so the train loop
 continues while bytes reach the disk; ``wait()`` surfaces any background
-error.  The reference's ``restore_sharded`` (elastic restore onto a new
-mesh) waits for the sharding rules (ROADMAP item 12).
+error.  ``restore_sharded`` is the elastic restore onto a new mesh: each
+rank keeps only its shard of every leaf.
 """
 from __future__ import annotations
 
@@ -120,6 +120,21 @@ def load(ckpt_dir: str, step: int | None = None) -> tuple[int, dict[str, Any]]:
                     for k in z.files}
         out[name] = unflatten(flat)
     return step, out
+
+
+def restore_sharded(ckpt_dir: str, shardings: dict[str, Any], step: int | None = None):
+    """Elastic restore: place saved arrays with *new-mesh* shardings.
+
+    ``shardings``: {"params": tree of ``NamedSharding``, ...} resolved
+    against the current mesh (``repro_torch.dist.sharding.spec_shardings``);
+    each leaf of those trees becomes this rank's shard on
+    ``current_device()`` (``NamedSharding.place``).  The saved mesh shape is
+    irrelevant, which is what makes restart on a different topology work.
+    """
+    from repro_torch.dist.sharding import place_tree
+    step, trees = load(ckpt_dir, step)
+    return step, {name: place_tree(tree, shardings[name]) if name in shardings else tree
+                  for name, tree in trees.items()}
 
 
 def _snapshot(v):

@@ -3,17 +3,23 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b --steps 3 \\
         [--batch 4 --seq-len 512 --microbatches 2] [--smoke --device cpu]
 
-It trains on the card (``--device cpu`` asks for the CPU).  One process
-only: the reference's multi-host run (``--coordinator`` /
-``--num-processes`` / ``--process-id``, a data shard per process) waits for
-the port's sharding and restore rules (ROADMAP item 12), so
-``--num-processes`` above 1 is refused rather than training replicas that
-never synchronize.
+It trains on the card (``--device cpu`` asks for the CPU).  Several
+processes, as the reference's multi-host run:
+
+    ... --coordinator host:port --num-processes N --process-id i
+
+Each process joins a ``torch.distributed`` world over the coordinator's
+address (gloo on the CPU, nccl on the card) and trains on its data shard
+(``shard_id=i``, ``num_shards=N``).  As in the reference, the loop takes no
+mesh and exchanges no gradients, and every process saves into
+``--ckpt-dir``, so processes run at once want a directory each.
 """
 from __future__ import annotations
 
 import argparse
 from pathlib import Path
+
+import torch.distributed as dist
 
 import repro_torch
 from repro_torch.configs import get_config, get_smoke
@@ -39,18 +45,26 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
-    # multi-host: refused until ROADMAP item 12
+    # multi-host
     ap.add_argument("--coordinator", default=None)
     ap.add_argument("--num-processes", type=int, default=1)
     ap.add_argument("--process-id", type=int, default=0)
     args = ap.parse_args(argv)
 
-    if args.num_processes > 1 or args.coordinator:
-        ap.error("multi-process training is not ported yet (ROADMAP item 12: the sharding "
-                 "rules, restore_sharded and a data shard per process); run one process")
     if args.device:
         repro_torch.set_device(args.device)
+    if args.coordinator:
+        backend = "gloo" if repro_torch.current_device().type == "cpu" else "nccl"
+        dist.init_process_group(backend, init_method=f"tcp://{args.coordinator}",
+                                world_size=args.num_processes, rank=args.process_id)
+    try:
+        return _train(args)
+    finally:
+        if args.coordinator:
+            dist.destroy_process_group()
 
+
+def _train(args) -> dict:
     cfg = (get_smoke(args.arch) if args.smoke else get_config(args.arch))
     cfg = cfg.with_(vocab_size=TOKENIZER.vocab_size) if args.smoke else cfg
     loop = LoopConfig(steps=args.steps, batch=args.batch, seq_len=args.seq_len,

@@ -8,9 +8,11 @@ the hand-written CUDA kernel here, reached through ``ops.flash_attention``.
 activations on the CPU it keeps the reference's rule: ``"chunked"`` past
 ``8 * attn_q_chunk`` positions, else ``"full"``.  The decode step against a
 KV cache (:func:`decode_self_attention`) follows the same rule with the
-``decode_attention`` kernel.  Cross attention (the VLM's image blocks, whisper's decoder)
-is the reference's plain ``gqa_attend`` in both forms, as no Pallas kernel
-computes it there.
+``decode_attention`` kernel; a ``decode_cp`` config under activation rules
+whose mesh has a ``model`` axis takes the context-parallel path
+(``dist/context_parallel.py``) instead.  Cross attention (the VLM's image
+blocks, whisper's decoder) is the reference's plain ``gqa_attend`` in both
+forms, as no Pallas kernel computes it there.
 """
 from __future__ import annotations
 
@@ -200,11 +202,15 @@ def decode_self_attention(params, x, k_cache, v_cache, cache_len, *, cfg: ModelC
 
     ``cache_len`` may be a scalar (uniform batch) or a [B] vector
     (continuous batching: per-slot lengths).  The attention is
-    ``decode_attend`` under the model's ``sliding_window``.
+    ``decode_attend`` under the model's ``sliding_window``.  With
+    ``cfg.decode_cp`` under ``activation_rules`` whose mesh has a ``model``
+    axis it is context-parallel (:func:`_context_parallel`); otherwise, as
+    in the reference, such a config takes this ordinary path.
     Returns (out [B,1,D], k_cache, v_cache)."""
     if cfg.decode_cp:
-        raise NotImplementedError(
-            "context-parallel decode (cfg.decode_cp) is not ported yet (ROADMAP item 12)")
+        out = _context_parallel(params, x, k_cache, v_cache, cache_len, cfg=cfg)
+        if out is not None:
+            return out
     b, s_max = x.shape[0], k_cache.shape[1]
     lens = torch.as_tensor(cache_len, dtype=torch.int32, device=x.device).expand(b)
     q, k_new, v_new = project_qkv(params, x, cfg=cfg, positions=lens[:, None])
@@ -218,6 +224,39 @@ def decode_self_attention(params, x, k_cache, v_cache, cache_len, *, cfg: ModelC
     v_cache[bidx, pos] = torch.where(keep, v_new[:, 0].to(v_cache.dtype), v_cache[bidx, pos])
     out = decode_attend(q, k_cache, v_cache, lens, window=cfg.sliding_window, cfg=cfg)
     return out_proj(params, out), k_cache, v_cache
+
+
+def _context_parallel(params, x, k_cache, v_cache, cache_len, *, cfg: ModelConfig):
+    """The reference's ``decode_cp`` branch: resolve the caches' spec under
+    the installed rules and run ``cp_decode_self_attention`` on this rank's
+    shards; None when no rules with a ``model`` axis are installed.
+
+    The caches are ``DTensor``s (``NamedSharding.distribute``) whose global
+    shape the spec is resolved from, sharded as the reference's ``shard_map``
+    takes them: ``P(batch, kv_seq axes, None, None)``; x and ``cache_len``
+    hold this rank's batch rows."""
+    from repro_torch.dist import sharding as shd
+    ctx = shd.model_rules()
+    if ctx is None:
+        return None
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.dist.context_parallel import cp_decode_self_attention
+    mesh, rules = ctx
+    spec = shd.resolve_pspec(tuple(k_cache.shape), ("batch", "kv_seq", "kv_heads", "qkv"),
+                             mesh, rules)
+    seq_axes = spec[1] if spec[1] is not None else "model"
+    want = shd.NamedSharding(mesh, shd.P(spec[0], seq_axes, None, None)).placements
+    for c in (k_cache, v_cache):
+        if not isinstance(c, DTensor) or tuple(c.placements) != want or c.device_mesh != mesh:
+            raise ValueError(f"context-parallel decode takes the caches as DTensors on the "
+                             f"rules' mesh with placements {want}")
+    kc, vc = k_cache.to_local(), v_cache.to_local()
+    if x.shape[0] != kc.shape[0]:
+        raise ValueError(f"x holds {x.shape[0]} rows, this rank's cache shard {kc.shape[0]}")
+    out, _, _ = cp_decode_self_attention(params, x, kc, vc, cache_len, cfg=cfg, mesh=mesh,
+                                         axis=seq_axes)
+    return out, k_cache, v_cache
 
 
 def decode_attend(q, k, v, lens, *, window: int, cfg: ModelConfig):

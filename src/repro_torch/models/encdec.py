@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.common import ParamSpec, SpecTree
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import shard_activation
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import _layer, _maybe_remat, _stack
@@ -73,6 +74,7 @@ def _frames(cfg: ModelConfig, extra) -> torch.Tensor:
 
 
 def _enc_layer(lp, x, *, cfg: ModelConfig):
+    x = shard_activation(x, ("batch", None, None))
     h = L.layernorm(lp["attn_norm"], x, cfg.norm_eps)
     a, _ = attn.self_attention(lp["attn"], h, cfg=cfg, causal=False)
     x = x + a
@@ -96,6 +98,7 @@ def encode(params, frames, *, cfg: ModelConfig, remat: bool = False):
 
 
 def _dec_layer_seq(lp, x, enc_out, *, cfg: ModelConfig):
+    x = shard_activation(x, ("batch", "seq_act", None))
     h = L.layernorm(lp["attn_norm"], x, cfg.norm_eps)
     a, kv = attn.self_attention(lp["attn"], h, cfg=cfg, causal=True)
     x = x + a

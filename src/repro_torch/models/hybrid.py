@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.common import ParamSpec, SpecTree
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import shard_activation
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
@@ -120,6 +121,7 @@ def _run_seq(params, x, *, cfg: ModelConfig, cache=None, remat: bool = False):
     x0, s = x, x.shape[1]
     mamba = _maybe_remat(_mamba_block, cfg, remat)
     for stack, i in _blocks(cfg):
+        x = shard_activation(x, ("batch", None, None))  # keep batch on dp axes
         if stack == "shared":
             x, (k, v) = _shared_attn_seq(params["shared"], x, x0, cfg=cfg)
             if cache is not None:

@@ -15,10 +15,11 @@ the reference's: the router in f32, SiLU in f32 then back, the gates in the
 activations' dtype.
 
 Returns an aux dict with the load-balance and router-z losses (ST-MoE
-style).  The reference's mesh branch (``moe_sharded.moe_ffn_sharded``,
-taken under an active mesh) waits for the sharding rules (ROADMAP item 12).
+style).  Under activation rules whose mesh has a ``model`` axis the layer
+goes through ``moe_sharded.moe_ffn_sharded``, as the reference's does.
 :func:`route` is the router alone, which the tests hold to the
-reference's routing.
+reference's routing; :func:`dispatch_combine` and :func:`aux_losses` are
+the parts the sharded layer shares.
 """
 from __future__ import annotations
 
@@ -77,14 +78,27 @@ def assign_slots(expert_idx: torch.Tensor, *, cfg: ModelConfig):
 def moe_ffn(params, x: torch.Tensor, *, cfg: ModelConfig):
     """x: [B, S, d] -> ([B, S, d], aux_losses dict).
 
-    The reference's single-device ``_moe_ffn``: it dispatches through
-    ``moe_sharded.py`` under an active mesh, and the port has no mesh yet
-    (ROADMAP item 12)."""
-    b, s, d = x.shape
-    e, k = cfg.num_experts, cfg.experts_per_token
-    cap = capacity(cfg, s)
+    The reference's single-device ``_moe_ffn``, or under activation rules
+    whose mesh has a ``model`` axis its shard-local ``moe_ffn_sharded``."""
+    from repro_torch.dist import sharding as shd
+    ctx = shd.model_rules()
+    if ctx is not None:
+        from repro_torch.models.moe_sharded import moe_ffn_sharded
+        return moe_ffn_sharded(params, x, cfg=cfg, mesh=ctx[0])
     logits, probs, gate_vals, expert_idx, slot, dropped = route(params, x, cfg=cfg)
+    y = dispatch_combine(x, expert_idx, slot, gate_vals, dropped, params["w_gate"],
+                         params["w_up"], params["w_down"], cap=capacity(cfg, x.shape[1]))
+    lb_loss, z_loss = aux_losses(logits, probs, expert_idx, cfg=cfg)
+    return y, {"moe_lb": lb_loss * cfg.router_aux_coef, "moe_z": z_loss * 1e-3}
 
+
+def dispatch_combine(x, expert_idx, slot, gate_vals, dropped, w_gate, w_up, w_down, *,
+                     cap: int):
+    """The expert FFN over a dense [B, E, C, d] buffer of the experts in
+    ``w_*`` (``expert_idx`` indexes them; a dropped choice sits in slot
+    ``cap``): y[b, s] = sum_k gate * FFN_{e_k}(x[b, s])."""
+    b, s, d = x.shape
+    k, e = expert_idx.shape[-1], w_gate.shape[0]
     # dispatch: buf[b, e, c, :] = x[b, s, :]; the dropped choices pile up
     # in the overflow slot, which is sliced away
     bidx = torch.arange(b, device=x.device)[:, None, None].expand(b, s, k)
@@ -94,21 +108,23 @@ def moe_ffn(params, x: torch.Tensor, *, cfg: ModelConfig):
     buf = buf[:, :, :cap]
 
     # the expert FFN: three batched products over E
-    g = einsum("becd,edf->becf", buf, params["w_gate"])
-    u = einsum("becd,edf->becf", buf, params["w_up"])
+    g = einsum("becd,edf->becf", buf, w_gate)
+    u = einsum("becd,edf->becf", buf, w_up)
     h = F.silu(g.float()).to(x.dtype) * u
-    out_buf = einsum("becf,efd->becd", h, params["w_down"])
+    out_buf = einsum("becf,efd->becd", h, w_down)
     out_buf = torch.cat([out_buf, out_buf.new_zeros((b, e, 1, d))], dim=2)
 
     # combine: y[b, s] = sum_k gate * out_buf[b, e_k, slot_k]
     gathered = out_buf[bidx, expert_idx, slot]                    # [B,S,k,d]
     gates = torch.where(dropped, 0.0, gate_vals).to(x.dtype)
-    y = einsum("bskd,bsk->bsd", gathered, gates)
+    return einsum("bskd,bsk->bsd", gathered, gates)
 
-    # aux losses
+
+def aux_losses(logits, probs, expert_idx, *, cfg: ModelConfig):
+    """(load-balance loss, router-z loss) over these rows, unscaled."""
+    e = cfg.num_experts
     frac_tokens = F.one_hot(expert_idx, e).float().mean(dim=(1, 2))   # [B,E]
     mean_probs = probs.mean(dim=1)                                     # [B,E]
     lb_loss = e * (frac_tokens * mean_probs).sum(dim=-1).mean()
     z_loss = torch.logsumexp(logits, dim=-1).square().mean()
-    aux = {"moe_lb": lb_loss * cfg.router_aux_coef, "moe_z": z_loss * 1e-3}
-    return y, aux
+    return lb_loss, z_loss

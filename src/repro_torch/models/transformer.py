@@ -12,9 +12,9 @@ the reference's grouped stacks:
     block + k self-attention layers), the blocks in ``cross_layers``
 
 :func:`_blocks` lists the blocks in the order a token passes them, and every
-entry point walks that list.  The reference's ``shard_activation`` is the
-identity without a mesh and is dropped until the sharding rules are ported
-(ROADMAP item 12).
+entry point walks that list.  Each decoder layer opens with the reference's
+``shard_activation`` hint, the identity on the plain tensors the port's
+ranks hold (``dist/sharding.py``).
 
 Three entry points share the layer bodies:
   forward      (scoring: full sequence -> logits, MoE aux losses)
@@ -38,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common import ParamSpec, SpecTree
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import shard_activation
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
@@ -166,6 +167,7 @@ def _ffn(lp, h, *, cfg: ModelConfig, use_moe: bool):
 
 def _decoder_layer_seq(lp, x, *, cfg: ModelConfig, use_moe: bool):
     """Full-sequence decoder layer. Returns (x, (k, v), aux)."""
+    x = shard_activation(x, ("batch", "seq_act", "embed_act"))
     h = L.rmsnorm(lp["attn_norm"], x, cfg.norm_eps)
     a, kv = attn.self_attention(lp["attn"], h, cfg=cfg)
     x = x + a

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from repro_torch.common import ParamSpec, SpecTree
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import shard_activation
 from repro_torch.models import layers as L
 from repro_torch.models import xlstm as X
 from repro_torch.models.transformer import _layer, _maybe_remat, _set_layer, _stack
@@ -77,6 +78,7 @@ def _run_seq(params, x, *, cfg: ModelConfig, cache=None, remat: bool = False):
     state is written into its layer of the cache."""
     block = _maybe_remat(_block, cfg, remat)
     for kind, i in _blocks(cfg):
+        x = shard_activation(x, ("batch", None, None))
         lp = _layer(params[f"{kind}_layers"], i)
         if cache is None:
             x = block(lp, x, kind=kind, cfg=cfg)

@@ -103,11 +103,13 @@ def _slices(t: torch.Tensor) -> list[torch.Tensor]:
     return list(torch.split(t, rows))
 
 
-def apply_updates(cfg: OptimizerConfig, params, state, grads):
+def apply_updates(cfg: OptimizerConfig, params, state, grads, *, gnorm=None):
     """One AdamW step, written into ``params`` and ``state`` in place.
     Returns (params, state, metrics) as the reference does; metrics are
-    ``grad_norm`` and ``lr``, 0-dim f32 tensors on the params' device."""
-    gnorm = global_norm(grads)
+    ``grad_norm`` and ``lr``, 0-dim f32 tensors on the params' device.
+    ``gnorm`` is the clipping norm when ``grads`` are one rank's shards of
+    the gradient (the sharded step); by default ``global_norm(grads)``."""
+    gnorm = global_norm(grads) if gnorm is None else gnorm
     scale = _clip_scale(gnorm, cfg.clip_norm)
     step = state["step"] + 1
     lr = lr_at(cfg, step)

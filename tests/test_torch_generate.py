@@ -143,13 +143,38 @@ def test_decode_self_attention_matches_reference(window, cache_len):
         np.testing.assert_array_equal(_np(tk)[2], kc[2])     # the dropped write
 
 
-def test_decode_self_attention_refuses_context_parallel_decode():
-    tcfg, _ = _cfgs(decode_cp=True)
-    tp = tcommon.init_params(tattn.attention_spec(tcfg), torch.Generator().manual_seed(0))
-    z = torch.zeros(1, 4, tcfg.num_kv_heads, tcfg.hd)
-    with pytest.raises(NotImplementedError, match="decode_cp"):
-        tattn.decode_self_attention(tp, torch.zeros(1, 1, tcfg.d_model), z, z.clone(), 0,
-                                    cfg=tcfg)
+@pytest.mark.parametrize("rules", ["none", "no model axis"])
+def test_decode_cp_without_a_model_axis_takes_the_ordinary_decode(rules):
+    """A ``decode_cp`` config with no activation rules, or with rules whose
+    mesh has no ``model`` axis, decodes as the reference's does: the
+    ordinary path, the same output and caches."""
+    import contextlib
+
+    from repro.dist import sharding as jshd
+    from repro_torch.dist import sharding as tshd
+    tcfg, jcfg = _cfgs(decode_cp=True)
+    jp = jcommon.init_params(jattn.attention_spec(jcfg), jax.random.PRNGKey(5))
+    tp = _cross(tattn.attention_spec(tcfg), jp)
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(2, 1, tcfg.d_model)).astype(np.float32)
+    kc, vc = (rng.normal(size=(2, 16, tcfg.num_kv_heads, tcfg.hd)).astype(np.float32)
+              for _ in range(2))
+    lens = np.asarray([3, 11], np.int32)
+    if rules == "none":
+        tctx = jctx = contextlib.nullcontext()
+    else:
+        tctx = tshd.activation_rules(tshd.abstract_mesh((2,), ("data",)), "default")
+        jctx = jshd.activation_rules(jshd.abstract_mesh((2,), ("data",)), "default")
+    with tctx:
+        tout, tk, tv = tattn.decode_self_attention(tp, torch.from_numpy(x), torch.tensor(kc),
+                                                   torch.tensor(vc), torch.from_numpy(lens),
+                                                   cfg=tcfg)
+    with jctx:
+        jout, jk, jv = jattn.decode_self_attention(jp, jnp.asarray(x), jnp.asarray(kc),
+                                                   jnp.asarray(vc), jnp.asarray(lens), cfg=jcfg)
+    np.testing.assert_allclose(_np(tout), np.asarray(jout), atol=ATOL_LAYER, rtol=0)
+    np.testing.assert_allclose(_np(tk), np.asarray(jk), atol=ATOL_LAYER, rtol=0)
+    np.testing.assert_allclose(_np(tv), np.asarray(jv), atol=ATOL_LAYER, rtol=0)
 
 
 @pytest.mark.parametrize("window", [0, 8])

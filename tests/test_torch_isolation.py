@@ -7,7 +7,8 @@ decode step), a lazy ``SemFrame`` pipeline through the plan layer
 (filter -> join -> topk, optimized and collected), a ``Gateway`` session, a
 ``Subscription`` over a ``CorpusTable`` with one append, an ``Embedder``
 forward, a smoke mixtral forward (MoE), a VLM decode step, two train steps
-over ``packed_batch`` and a checkpoint saved and loaded, on the CPU."""
+over ``packed_batch``, a checkpoint saved and loaded, ``resolve_pspec`` and
+a context-parallel decode step in a one-rank gloo world, on the CPU."""
 import os
 import re
 import subprocess
@@ -141,6 +142,31 @@ _GUARDED = textwrap.dedent("""
     assert n == 2 and int(back["opt_state"]["step"]) == 2
     assert torch.equal(back["params"]["layers"]["attn"]["wq"].view(torch.int16),
                        wq.view(torch.int16))
+    import torch.distributed as dist
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import attention as attn
+    amesh = shd.abstract_mesh((2, 4), ("data", "model"))
+    assert shd.resolve_pspec((1, 64, 8, 128), ("batch", "kv_seq", "kv_heads", "qkv"), amesh,
+                             "default") == shd.P(None, ("data", "model"), None, None)
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("gloo", init_method=f"file://{d}/rdzv", world_size=1, rank=0)
+        try:
+            mesh = make_test_mesh((1, 1), ("data", "model"))
+            ap = tparams["layers"]["attn"]
+            ap = {k: v[0] for k, v in ap.items()}
+            x = torch.randn(2, 1, tcfg.d_model)
+            kc, vc = (torch.randn(2, 32, tcfg.num_kv_heads, tcfg.hd) for _ in range(2))
+            lens = torch.tensor([5, 31], dtype=torch.int32)
+            want, wk, _ = attn.decode_self_attention(ap, x, kc.clone(), vc.clone(), lens, cfg=tcfg)
+            sh = shd.NamedSharding(mesh, shd.P("data", "model", None, None))
+            kd, vd = sh.distribute(kc), sh.distribute(vc)
+            with shd.activation_rules(mesh, "serve_replicated"):
+                got, _, _ = attn.decode_self_attention(ap, x, kd, vd, lens,
+                                                       cfg=tcfg.with_(decode_cp=True))
+            assert torch.allclose(got, want, atol=1e-5) and torch.equal(kd.to_local(), wk)
+        finally:
+            dist.destroy_process_group()
     assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro") for m in sys.modules)
     print("modules", len(names))
 """)
@@ -152,8 +178,8 @@ def test_port_imports_and_runs_with_jax_and_repro_refused():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
     n = int(out.stdout.split("modules")[-1])
-    assert n >= 100         # every module of slices 1, 2a-2c, the plan and serving layers,
-                            # the model families and training
+    assert n >= 106         # every module of slices 1, 2a-2c, the plan and serving layers,
+                            # the model families, training and the distribution layer
 
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|repro)(?:[.\s,]|$)", re.M)

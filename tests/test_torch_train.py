@@ -438,10 +438,41 @@ def test_launch_train_smoke_on_the_cpu(tmp_path, capsys):
     assert "[train] final:" in capsys.readouterr().out
 
 
-def test_launch_train_refuses_more_than_one_process(tmp_path):
+def test_launch_train_runs_two_processes(tmp_path):
+    """``--num-processes 2 --coordinator``: two processes join a gloo world
+    and each trains on its data shard; each one's final metrics equal a
+    one-process run with ``--process-id`` as its shard (no coordinator: the
+    loop exchanges nothing, as the reference's)."""
+    import ast
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
     from repro_torch.launch import train as launch_train
-    with pytest.raises(SystemExit) as err:
-        launch_train.main(["--smoke", "--device", "cpu", "--num-processes", "2",
-                           "--ckpt-dir", str(tmp_path)])
-    assert err.value.code == 2
-    assert not any(tmp_path.iterdir())
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    args = ["--smoke", "--device", "cpu", "--steps", "2", "--batch", "2", "--seq-len", "32",
+            "--num-processes", "2"]
+    procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train", *args,
+                               "--process-id", str(i), "--coordinator", f"127.0.0.1:{port}",
+                               "--ckpt-dir", str(tmp_path / f"world{i}")],
+                              env=env, cwd=root, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for i in range(2)]
+    finals = []
+    for p in procs:
+        out, _ = p.communicate(timeout=180)
+        assert p.returncode == 0, out[-4000:]
+        finals.append(ast.literal_eval(out.split("[train] final:")[-1].strip()))
+    for i, got in enumerate(finals):
+        want = launch_train.main([*args, "--process-id", str(i),
+                                  "--ckpt-dir", str(tmp_path / f"alone{i}")])
+        assert got["last_step"] == want["last_step"] == 2
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-5)
+        assert sorted(os.listdir(tmp_path / f"world{i}")) == ["step_00000002"]
+    assert finals[0]["loss"] != finals[1]["loss"]       # two shards of the data
