@@ -1131,12 +1131,13 @@ def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> int:
     return int((key(got) - key(want)).abs().max())
 
 
-def tensor_core_ops(symbol: str) -> dict[str, int]:
-    """The tensor-core instructions (HGMMA: wgmma; HMMA: mma.sync) in the
-    SASS of each instance of the kernel ``symbol`` in the built
-    flash_attention library, by ``cuobjdump -sass``."""
+def tensor_core_ops(symbol: str, library: str = "flash_attention",
+                    ops: tuple[str, ...] = ("HGMMA", "HMMA")) -> dict[str, int]:
+    """The tensor-core instructions (HGMMA: wgmma; HMMA: mma.sync; those in
+    ``ops``) in the SASS of each instance of the kernel ``symbol`` in the
+    built ``library``, by ``cuobjdump -sass``."""
     tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(_build.library_path("flash_attention"))],
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(library))],
                           capture_output=True, text=True, check=True).stdout
     counts, fn = {}, None
     for line in sass.splitlines():
@@ -1144,7 +1145,7 @@ def tensor_core_ops(symbol: str) -> dict[str, int]:
             fn = line.split("Function :")[1].strip()
             if symbol in fn:
                 counts[fn] = 0
-        elif fn in counts and ("HGMMA" in line or "HMMA" in line):
+        elif fn in counts and any(op in line for op in ops):
             counts[fn] += 1
     return counts
 
@@ -3821,6 +3822,7 @@ def attention_bwd_phase(args, bw, fp32, bf16) -> dict:
             ((2, 200, 200, 8, 1, 100), b16, True, 0),     # H/Hk 8, hd 100
             ((2, 200, 200, 8, 1, 100), f32, False, 0),
             ((3, 77, 77, 8, 4, 64), b16, False, 0),       # hd 64, odd S, no mask
+            ((2, 200, 200, 16, 1, 64), b16, True, 0),     # H/Hk 16: two q-heads a block
             ((3, 77, 77, 8, 4, 64), f32, True, 16),
             ("misaligned", b16, True, 0), ("misaligned", f32, True, 8)]:
         if shape == "misaligned":
@@ -3829,9 +3831,12 @@ def attention_bwd_phase(args, bw, fp32, bf16) -> dict:
                              ((2, 96, 4, HD), (2, 96, 2, HD), (2, 96, 2, HD), (2, 96, 4, HD)))
         else:
             q, k, v, dout = inputs(*shape, dt)
-        out = kfa.flash_attention(q, k, v, causal=causal, window=window)
-        got = kfa.flash_attention_bwd(q, k, v, out, dout, causal=causal, window=window)
-        again = kfa.flash_attention_bwd(q, k, v, out, dout, causal=causal, window=window)
+        out, st = kfa.flash_attention(q, k, v, causal=causal, window=window,
+                                      return_stats=True)
+        got = kfa.flash_attention_bwd(q, k, v, out, dout, causal=causal, window=window,
+                                      stats=st)
+        again = kfa.flash_attention_bwd(q, k, v, out, dout, causal=causal, window=window,
+                                        stats=st)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(got, again)), "two calls differ"
         want = ref.flash_attention_bwd_ref(q, k, v, out, dout, causal=causal, window=window)
@@ -3850,8 +3855,15 @@ def attention_bwd_phase(args, bw, fp32, bf16) -> dict:
     # training shape in bf16
     shape = (mb, TRAIN_SEQ, TRAIN_SEQ, H, HK, HD)
     q, k, v, dout = inputs(*shape, b16)
-    out = kfa.flash_attention(q, k, v, causal=True)
-    got = kfa.flash_attention_bwd(q, k, v, out, dout, causal=True)
+    out, st = kfa.flash_attention(q, k, v, causal=True, return_stats=True)
+    m, l_ = ref.flash_attention_stats_ref(q, k, v, causal=True)
+    m_err = float(((st[0] - m).abs() / (1 + m.abs())).max())
+    l_err = float(((st[1] - l_) / l_).abs().max())
+    log(f"flash_attention bf16 forward's saved statistics at the training shape against "
+        f"flash_attention_stats_ref: m |diff|/(1+|plain|) {m_err:.3g}, l relative {l_err:.3g} "
+        f"(limits 1e-5, 1e-4)")
+    assert m_err <= 1e-5 and l_err <= 1e-4, (m_err, l_err)
+    got = kfa.flash_attention_bwd(q, k, v, out, dout, causal=True, stats=st)
     want = ref.flash_attention_bwd_ref(q, k, v, out, dout, causal=True)
     rows = {"kernel": got, "f32 written out (correct)": manual_bwd(q, k, v, dout, causal=True,
                                                                   window=0)}
@@ -3871,11 +3883,24 @@ def attention_bwd_phase(args, bw, fp32, bf16) -> dict:
                                                                 enable_gqa=True)
     dout_t = dout.transpose(1, 2)
     ms, lib, ratios, clock = interleaved_ms(
-        lambda: kfa.flash_attention_bwd(q, k, v, out, dout, causal=True),
+        lambda: kfa.flash_attention_bwd(q, k, v, out, dout, causal=True, stats=st),
         lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dout_t, retain_graph=True), 10)
     plain, pclock = plain_ms(
         lambda: ref.flash_attention_bwd_ref(q, k, v, out, dout, causal=True), 3)
-    ev = cuda_ms(lambda: kfa.flash_attention_bwd(q, k, v, out, dout, causal=True), 10)
+    ev = cuda_ms(lambda: kfa.flash_attention_bwd(q, k, v, out, dout, causal=True, stats=st), 10)
+    # the call's kernels one by one, and the tensor cores in the SASS of each
+    # bf16 kernel that computes a product
+    _, recs = profiled(lambda: kfa.flash_attention_bwd(q, k, v, out, dout, causal=True,
+                                                       stats=st))
+    split = {n: sum(e.self_device_time_total for e in recs if n in e.key) / 1e3
+             for n in kfa.BWD_KERNEL_NAMES[b16]}
+    log("flash_attention backward bf16, its kernels in one call (profiler): "
+        + ", ".join(f"{n} {t:.4f} ms" for n, t in split.items()))
+    hgmma = {n: tensor_core_ops(n, "flash_attention_bwd", ("HGMMA",))
+             for n in kfa.BWD_KERNEL_NAMES[b16]}
+    log(f"flash_attention backward bf16 SASS (cuobjdump -sass): HGMMA per instance {hgmma}")
+    assert all(c and all(n > 0 for n in c.values()) for c in hgmma.values()), \
+        f"no HGMMA in a bf16 backward kernel: {hgmma}"
     pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
     flops = 10 * mb * H * HD * pairs          # S, dP, dV, dK, dQ over the unmasked pairs
     nbytes = q.element_size() * 4 * (q.numel() + k.numel())   # q,k,v,out,dout in; dq,dk,dv out
@@ -3888,7 +3913,7 @@ def attention_bwd_phase(args, bw, fp32, bf16) -> dict:
         f"({pclock}), SDPA backward {lib:.4f} ms; median kernel / SDPA "
         f"{statistics.median(ratios):.3f} (each round: "
         + ", ".join(f"{r:.3f}" for r in ratios) + f"); kernel by CUDA events {ev:.4f} ms")
-    del q, k, v, dout, out, got, want, rows, faults, qt, kt, vt, sdpa_out
+    del q, k, v, dout, out, st, got, want, rows, faults, qt, kt, vt, sdpa_out
     free_card()
     return {"flash_attention_bwd": dict(
         max_abs_err=worst_abs, ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,

@@ -62,6 +62,11 @@
 //   not 16-byte aligned, e.g. hd 20 or a sliced tensor, take scalar stores).
 // - The launch's fixed set-up (the shared-memory limit, the blocks that fit
 //   on the card) is done once a device; a launch builds only its tensor map.
+// - Given a stats pointer (the training path's forward), each item also
+//   writes its rows' max m and sum l for the backward
+//   (flash_attention_bwd.cu), which then needs no statistics pass of its
+//   own; inference passes null.  The wgmma, swizzle, cp.async and TMA
+//   helpers are in wgmma.cuh, shared with the backward.
 //
 // f32 (flash_attention_simt_f32) stays on the SIMT pipes: the contract
 // demands IEEE f32 products, and the tensor cores have no such mode (TF32
@@ -74,6 +79,8 @@
 
 #include <algorithm>
 #include <atomic>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -280,185 +287,13 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int
 // ---------------------------------------------------------------------------
 namespace tc {
 
-using bf16 = __nv_bfloat16;
+using namespace wg;
 
 constexpr int BQ = 64;          // q rows per block: one wgmma M
 constexpr int BK = 64;          // keys per tile: the S product's N
 constexpr int THREADS = 128;    // one warpgroup
 constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// A 64-row tile of HDP bf16 columns is held in wgmma's 128-byte swizzled
-// layout: HDP / 64 panels of 64 columns (8 KB each), row r of a panel at byte
-// 128 * r, its 16-byte chunk c at chunk c ^ (r % 8).  A descriptor names the
-// start address, LBO and SBO (in 16-byte units) and the swizzle mode.  For Q
-// and K (K-major: the product's K = hd runs along a row) SBO = 1024 steps 8
-// rows, a k16 step advances the start by 32 bytes inside a panel, and LBO is
-// not read (a step never leaves a 128-byte row).  For V
-// (MN-major, read through the transpose bit: K = keys, N = hd) SBO = 1024
-// steps 8 keys and LBO = 8192 the next 64 columns of hd.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
-  // ok == false writes 16 zero bytes and reads nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-// this thread's generic-proxy writes to shared memory become visible to wgmma
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-// pins registers that an asynchronous wgmma reads or writes in place, so the
-// compiler moves no access of them across the fence / wait around it
-template <int N> __device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-template <int N> __device__ __forceinline__ void pin(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
-}
-
-#define F4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define F16(d, i) F4(d, i), F4(d, i + 4), F4(d, i + 8), F4(d, i + 12)
-
-// d[64 x 64] (+)= A[64 x 16] B[16 x 64]^T, A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
-                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : F16(d, 0), F16(d, 16)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d[64 x 64] += A[64 x 16] B[16 x 64], A from registers, B MN-major in shared
-// memory (the transpose bit)
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : F16(d, 0), F16(d, 16)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d[64 x 128] += A[64 x 16] B[16 x 128], as above
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : F16(d, 0), F16(d, 16), F16(d, 32), F16(d, 48)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-#undef F16
-#undef F4
-
-// Rows [0, rows) of a 64-row tile whose row r starts at src + r * stride, its
-// first hd of HDP columns, into the swizzled layout at dst; the rest of the
-// tile is zero.  Eight neighbouring threads move one row's 128 bytes of a
-// panel.  VEC: hd % 8 == 0 and 16-byte aligned rows, copied asynchronously;
-// else scalar loads, stored at once.
-template <int HDP, bool VEC>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src,
-                                          long long stride, int rows, int hd) {
-  // chunk i: 16-byte column chunk c of row r in panel i / (8 * BQ)
-  auto place = [&](int i, int& r, int& col) {
-    const int c = i % 8;
-    r = i / 8 % BQ;
-    col = i / (8 * BQ) * 64 + 8 * c;
-    return dst + (i / (8 * BQ)) * (BQ * 64) + r * 64 + 8 * (c ^ (r % 8));
-  };
-  if constexpr (VEC) {
-#pragma unroll
-    for (int it = 0; it < BQ * HDP / 8 / THREADS; ++it) {
-      int r, col;
-      bf16* d = place(threadIdx.x + it * THREADS, r, col);
-      const bool ok = r < rows && col < hd;
-      cp_async16(smem_addr(d), ok ? src + r * stride + col : src, ok);
-    }
-  } else {
-    for (int i = threadIdx.x; i < BQ * HDP / 8; i += THREADS) {
-      int r, col;
-      bf16* d = place(i, r, col);
-      uint32_t w[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int x = col + 2 * e;
-        const bf16 zero = __float2bfloat16(0.f);
-        const bf16 lo = r < rows && x < hd ? src[r * stride + x] : zero;
-        const bf16 hi = r < rows && x + 1 < hd ? src[r * stride + x + 1] : zero;
-        w[e] = (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-      }
-      *reinterpret_cast<uint4*>(d) = make_uint4(w[0], w[1], w[2], w[3]);
-    }
-  }
-}
-
-// the output tile: a TMA store of one 64 x 64 panel from shared memory (in
-// the 128-byte swizzle) to out at (column c, head h, row r, batch b), and
-// waits for the stores' reads of shared memory / for the stores
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c, int h,
-                                          int r, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%1, %2, %3, %4}], [%5];\n"
-      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(h), "r"(r), "r"(b), "r"(src)
-      : "memory");
-}
-__device__ __forceinline__ void store_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void store_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void store_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {   // 2^x; 2^-inf = 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&t);
-}
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int HDP>
 constexpr size_t smem_bytes() {
@@ -508,6 +343,7 @@ template <int HDP, bool VEC>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_wgmma_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            const bf16* __restrict__ v, bf16* __restrict__ out,
+                           float* __restrict__ stats,
                            int B, int Sq, int Sk, int H, int Hk, int hd, float scale_log2,
                            int causal, int window, int n_qt,
                            const __grid_constant__ CUtensorMap out_map) {
@@ -737,6 +573,20 @@ flash_attention_wgmma_bf16(const bf16* __restrict__ q, const bf16* __restrict__ 
       l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
     const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+    if (stats != nullptr && lane % 4 == 0) {
+      // each row's max m (in the scores' units: NEG_INF stays NEG_INF for a
+      // row that no key may see) and sum l, for the backward
+      const long long row = ((long long)cur.b * H + cur.h) * Sq + cur.q0;
+      const long long plane = (long long)B * H * Sq;
+      if (cur.q0 + lr0 < Sq) {
+        stats[row + lr0] = m0 <= NEG_INF ? NEG_INF : m0 * LN2;
+        stats[plane + row + lr0] = l0;
+      }
+      if (cur.q0 + lr1 < Sq) {
+        stats[row + lr1] = m1 <= NEG_INF ? NEG_INF : m1 * LN2;
+        stats[plane + row + lr1] = l1;
+      }
+    }
 
     bf16* Os = Vs + (v_last & 1) * TILE;       // the V stage the product just read
     __syncthreads();   // every warp's share of the product is done
@@ -834,8 +684,8 @@ cudaError_t resident_blocks(int device, int* blocks) {
 }
 
 template <int HDP, bool VEC>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B,
-                   int Sq, int Sk, int H, int Hk, int hd, float scale, int causal,
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* stats,
+                   int B, int Sq, int Sk, int H, int Hk, int hd, float scale, int causal,
                    int window, int device, cudaStream_t stream) {
   const int n_qt = (Sq + BQ - 1) / BQ;
   const long long items = (long long)n_qt * H * B;
@@ -853,25 +703,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
   }
   flash_attention_wgmma_bf16<HDP, VEC><<<(unsigned)blocks, THREADS, smem_bytes<HDP>(), stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), B, Sq, Sk, H, Hk, hd, scale * LOG2E, causal, window, n_qt, map);
+      static_cast<bf16*>(out), stats, B, Sq, Sk, H, Hk, hd, scale * LOG2E, causal, window, n_qt,
+      map);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int B,
-                     int Sq, int Sk, int H, int Hk, int hd, float scale, int causal,
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, float* stats,
+                     int B, int Sq, int Sk, int H, int Hk, int hd, float scale, int causal,
                      int window, int device, cudaStream_t stream) {
   const uintptr_t addr_bits = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                               reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
   const bool vec = hd % 8 == 0 && addr_bits % 16 == 0;
   if (hd <= 64)
-    return vec ? launch<64, true>(q, k, v, out, B, Sq, Sk, H, Hk, hd, scale, causal, window,
-                                  device, stream)
-               : launch<64, false>(q, k, v, out, B, Sq, Sk, H, Hk, hd, scale, causal, window,
-                                   device, stream);
-  return vec ? launch<128, true>(q, k, v, out, B, Sq, Sk, H, Hk, hd, scale, causal, window,
-                                 device, stream)
-             : launch<128, false>(q, k, v, out, B, Sq, Sk, H, Hk, hd, scale, causal, window,
-                                  device, stream);
+    return vec ? launch<64, true>(q, k, v, out, stats, B, Sq, Sk, H, Hk, hd, scale, causal,
+                                  window, device, stream)
+               : launch<64, false>(q, k, v, out, stats, B, Sq, Sk, H, Hk, hd, scale, causal,
+                                   window, device, stream);
+  return vec ? launch<128, true>(q, k, v, out, stats, B, Sq, Sk, H, Hk, hd, scale, causal,
+                                 window, device, stream)
+             : launch<128, false>(q, k, v, out, stats, B, Sq, Sk, H, Hk, hd, scale, causal,
+                                  window, device, stream);
 }
 
 }  // namespace tc
@@ -882,10 +733,12 @@ extern "C" {
 
 // q [B, Sq, H, hd], k/v [B, Sk, Hk, hd], out [B, Sq, H, hd], all contiguous,
 // of one type (dtype 0 = f32 on the SIMT pipes, 1 = bf16 on the tensor
-// cores), on `device`; launches on `stream`.  Needs 1 <= hd <= 128,
+// cores), on `device`; launches on `stream`.  stats is null, or (bf16 only)
+// 2 * B * H * Sq f32 into which the launch also writes each row's max m and
+// sum l ([B, H, Sq] each: the backward's statistics).  Needs 1 <= hd <= 128,
 // H % Hk == 0.  Returns the CUDA error code (0 = ok).
 int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
-                          int dtype, long long B, long long Sq, long long Sk,
+                          void* stats, int dtype, long long B, long long Sq, long long Sk,
                           long long H, long long Hk, long long hd, float scale,
                           int causal, int window, int device, void* stream) {
   cudaGetLastError();  // clear a stale error so the code below is this launch's
@@ -896,12 +749,12 @@ int repro_flash_attention(const void* q, const void* k, const void* v, void* out
       Hk <= 0 || H % Hk != 0 || H > 0x7fffffffLL || B > 0x7fffffffLL || window < 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
+  if (dtype == 0 && stats == nullptr)
     return simt::dispatch(q, k, v, out, (int)B, (int)Sq, (int)Sk, (int)H, (int)Hk,
                           (int)hd, scale, causal, window, s);
   if (dtype == 1)
-    return tc::dispatch(q, k, v, out, (int)B, (int)Sq, (int)Sk, (int)H, (int)Hk,
-                        (int)hd, scale, causal, window, device, s);
+    return tc::dispatch(q, k, v, out, static_cast<float*>(stats), (int)B, (int)Sq, (int)Sk,
+                        (int)H, (int)Hk, (int)hd, scale, causal, window, device, s);
   return cudaErrorInvalidValue;
 }
 

@@ -50,8 +50,18 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     einsum does."""
     h, hk = q.shape[2], k.shape[2]
     if hk != h:
-        k = k.repeat_interleave(h // hk, dim=2)
         v = v.repeat_interleave(h // hk, dim=2)
+    p = torch.softmax(_masked_scores(q, k, causal, window), dim=-1)
+    out = torch.einsum("bhqs,bshd->bqhd", p.to(v.dtype).float(), v.float())
+    return out.to(v.dtype)
+
+
+def _masked_scores(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int
+                   ) -> torch.Tensor:
+    """The contract's f32 scores [B,H,Sq,Sk], masked ones NEG_INF."""
+    h, hk = q.shape[2], k.shape[2]
+    if hk != h:
+        k = k.repeat_interleave(h // hk, dim=2)
     s = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float()) * attn_scale(q.shape[-1])
     sq, sk = q.shape[1], k.shape[1]
     q_pos = torch.arange(sq, device=q.device)
@@ -61,10 +71,22 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask = q_pos[:, None] >= k_pos[None, :]
     if window:
         mask = mask & (q_pos[:, None] - k_pos[None, :] < window)
-    s = torch.where(mask[None, None], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhqs,bshd->bqhd", p.to(v.dtype).float(), v.float())
-    return out.to(v.dtype)
+    return torch.where(mask[None, None], s, NEG_INF)
+
+
+def flash_attention_stats_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                              causal: bool = True, window: int = 0
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each row's softmax statistics of :func:`flash_attention_ref`: the max m
+    of its masked scores and l = sum(exp(s - m)), f32 [B,H,Sq] each, as the
+    bf16 forward kernel saves them for its backward (``v`` is not read).  A
+    row that no key may see has m = NEG_INF and l = Sk: its softmax is
+    uniform.  The two are kept apart, not as m + log(l): in f32, NEG_INF +
+    log(Sk) rounds back to NEG_INF, which would lose that row's 1 / Sk."""
+    del v
+    s = _masked_scores(q, k, causal, window)
+    m = s.amax(dim=-1)
+    return m, torch.exp(s - m[..., None]).sum(dim=-1)
 
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -8,10 +8,17 @@ dims 16-128, within ``rtol=atol=1e-5`` (f32 sums in another order).  The
 CUDA backward kernel is held against this plain version on the card
 (``tests/test_torch_kernels_cuda.py``, ``chip_smoke.py`` phase 19).
 
+``ref.flash_attention_stats_ref`` (each row's softmax max m and sum l, which
+the bf16 forward kernel saves for its backward) is held against m and l
+taken with ``jnp`` from the scores inside the reference's
+``flash_attention_ref``, within ``rtol=atol=1e-6`` in f32 (the scores are
+summed in another order; the absolute floor covers maxima near 0).
+
 ``FlashAttention`` (the autograd binding of the two kernels) is exercised
 here with its two kernels replaced by their plain versions: the model's
-weights get the gradients the plain path gives them, and each backward
-launches once."""
+weights get the gradients the plain path gives them, each backward
+launches once, and in bf16 the backward receives the forward's statistics
+(asked for only when a gradient will be)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -106,22 +113,84 @@ def test_backward_contract_details():
 @pytest.fixture
 def plain_kernels(monkeypatch):
     """``FlashAttention`` with its two kernels replaced by their plain
-    versions, counting as the kernels do; the ops entry takes the kernel
-    path for these CPU tensors."""
-    def fwd(q, k, v, *, causal, window):
-        tfa.launches += 1
-        return tref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    versions, counting as the kernels do and keeping the statistics as the
+    kernels do (bf16 only); the ops entry takes the kernel path for these
+    CPU tensors.  Yields the list of (return_stats, stats passed back)."""
+    calls = []
 
-    def bwd(q, k, v, out, dout, *, causal, window):
+    def fwd(q, k, v, *, causal, window, return_stats=False):
+        tfa.launches += 1
+        out = tref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        if not return_stats:
+            calls.append(("fwd", False))
+            return out
+        stats = None
+        if q.dtype == torch.bfloat16:
+            stats = torch.stack(tref.flash_attention_stats_ref(q, k, v, causal=causal,
+                                                               window=window))
+        calls.append(("fwd", True))
+        return out, stats
+
+    def bwd(q, k, v, out, dout, *, causal, window, stats=None):
         tfa.backward_launches += 1
+        assert (stats is not None) == (q.dtype == torch.bfloat16)
+        if stats is not None:
+            want = torch.stack(tref.flash_attention_stats_ref(q, k, v, causal=causal,
+                                                              window=window))
+            assert torch.equal(stats, want)
+        calls.append(("bwd", stats is not None))
         return tref.flash_attention_bwd_ref(q, k, v, out, dout, causal=causal, window=window)
 
     monkeypatch.setattr(tfa, "flash_attention", fwd)
     monkeypatch.setattr(tfa, "flash_attention_bwd", bwd)
     monkeypatch.setattr(tops, "_resolve", lambda impl, t: "cuda")
     tfa.launches = tfa.backward_launches = 0
-    yield
+    yield calls
     tfa.launches = tfa.backward_launches = 0
+
+
+STATS_CASES = [  # (b, sq, sk, h, hk, hd), causal, window
+    ((2, 40, 40, 4, 2, 32), True, 0),         # GQA, causal
+    ((1, 33, 33, 8, 1, 16), True, 0),         # H/Hk 8
+    ((2, 24, 24, 4, 4, 64), False, 0),        # no mask at all
+    ((2, 48, 48, 6, 2, 32), True, 8),         # sliding window
+    ((1, 30, 30, 4, 2, 16), False, 5),        # window without causality
+    ((2, 20, 50, 4, 2, 32), True, 0),         # Sq < Sk
+    ((2, 64, 20, 4, 2, 16), True, 6),         # rows >= Sk + window - 1: no key may see them
+    ((1, 40, 12, 2, 1, 128), False, 4),       # the same without causality, hd 128
+]
+
+
+@pytest.mark.parametrize("shape,causal,window", STATS_CASES)
+def test_stats_plain_version_matches_jax_scores(shape, causal, window, monkeypatch):
+    """m and l against jnp's max and sum over the scores the reference's
+    ``flash_attention_ref`` hands to its softmax; rows no key may see have
+    m = NEG_INF and l = Sk exactly."""
+    q, k, v, _ = _inputs(*shape, seed=sum(shape) + window + 7)
+    seen = []
+    softmax = jax.nn.softmax
+
+    def capture(s, axis=-1):
+        seen.append(s)
+        return softmax(s, axis=axis)
+
+    monkeypatch.setattr(jax.nn, "softmax", capture)
+    jref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                             window=window)
+    (s,) = seen
+    m_want = jnp.max(s, axis=-1)
+    l_want = jnp.sum(jnp.exp(s - m_want[..., None]), axis=-1)
+    m, l = tref.flash_attention_stats_ref(*(torch.from_numpy(a) for a in (q, k, v)),
+                                          causal=causal, window=window)
+    assert m.shape == l.shape == (shape[0], shape[3], shape[1])
+    assert m.dtype == l.dtype == torch.float32
+    np.testing.assert_allclose(m.numpy(), np.asarray(m_want), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(l.numpy(), np.asarray(l_want), rtol=1e-6, atol=1e-6)
+    sq, sk = shape[1], shape[2]
+    if window and sq >= sk + window - 1:
+        dead = slice(sk + window - 1, None)
+        assert bool((m[:, :, dead] == tref.NEG_INF).all())
+        assert bool((l[:, :, dead] == sk).all())
 
 
 def test_autograd_binding_gives_the_plain_gradients(plain_kernels):
@@ -162,3 +231,24 @@ def test_train_step_through_the_kernel_pair_under_remat(plain_kernels):
         assert err <= 1e-5 * float(w.abs().max()), (p, err)
     for name in ("wq", "wk", "wv"):
         assert float(grads["layers"]["attn"][name].abs().max()) > 0, name
+
+
+def test_autograd_binding_passes_the_forward_stats_in_bf16(plain_kernels):
+    """In bf16 the forward keeps its row statistics and the backward gets
+    them (the fixture holds them to ``flash_attention_stats_ref``); the
+    gradients are the plain version's.  Inputs that need no gradient (the
+    engine's inference) launch without statistics."""
+    q, k, v, dout = (torch.from_numpy(a).to(torch.bfloat16).requires_grad_(i < 3)
+                     for i, a in enumerate(_inputs(2, 70, 70, 4, 2, 32, seed=9)))
+    out = tops.flash_attention(q, k, v, causal=True, window=24)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    want = tref.flash_attention_bwd_ref(q, k, v, out, dout, causal=True, window=24)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and torch.equal(g, w)
+    assert plain_kernels == [("fwd", True), ("bwd", True)]
+    plain_kernels.clear()
+    with torch.no_grad():
+        plain = tops.flash_attention(q.detach(), k.detach(), v.detach(), causal=True)
+    assert plain_kernels == [("fwd", False)]
+    assert torch.equal(plain, tref.flash_attention_ref(q, k, v, causal=True))
+    assert (tfa.launches, tfa.backward_launches) == (2, 1)

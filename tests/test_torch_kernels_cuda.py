@@ -382,32 +382,58 @@ def _assert_flash_matches_plain(q, k, v, causal, window):
 # The backward kernel against the plain version (autograd through the
 # contract): f32 within 1e-4 (five products summed in another order, scores
 # recomputed); bf16 within BWD_BF16_TOL, the limit chip_smoke.py's phase 19
-# sets between the kernel and two gross faults (the plain version rounds dP
-# and each q-head's dK/dV to bf16 before the group sum; the kernel keeps f32
-# and rounds once).
+# sets between the kernel and two gross faults.  In bf16 the plain version
+# runs on f32 copies of the same inputs and its gradients are rounded once,
+# as the contract rounds each output: autograd through the contract in bf16
+# rounds dP and each q-head's dK/dV before the group sum, which at Sk = 1
+# (every P 1, so dV sums Sq x H/Hk rows of dO) lies beyond the limit from
+# the once-rounded gradient, where the kernel keeps f32 and rounds once.  The kernel rounds P (the contract) and dS (its operand) to
+# bf16; the f32 plain version rounds neither.
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# edges of the bf16 tensor-core backward's tiling (64-row q tiles, 64-key
+# tiles, hd padded to 64/128), besides ATTN_SHAPES; under MASKS' windows
+# (16, 8: shorter than a tile)
+BWD_SHAPES = [  # b, sq, sk, h, hk, hd
+    (2, 1, 1, 4, 2, 128),         # Sq = Sk = 1
+    (1, 1, 100, 8, 2, 64),        # one q row against two key tiles
+    (1, 100, 1, 8, 2, 64),        # one key: under a window most rows see none
+    (2, 65, 127, 4, 2, 128),      # Sq != Sk, each one past a tile edge
+    (2, 127, 65, 4, 2, 128),
+    (1, 100, 100, 4, 4, 100),     # hd 100 with H/Hk 1 (8 is in ATTN_SHAPES)
+    (1, 100, 40, 4, 2, 64),       # windowed: q tile 0 holds rows that see keys and rows
+                                  # that see none (from Sk + window - 1 on)
+    (1, 100, 100, 16, 1, 64),     # H/Hk 16: clusters of 8 blocks, two q-heads a block
+]
 
 
 def _assert_flash_bwd_matches_plain(q, k, v, causal, window, seed=0):
-    out = tfa.flash_attention(q, k, v, causal=causal, window=window)
+    out, stats = tfa.flash_attention(q, k, v, causal=causal, window=window,
+                                     return_stats=True)
     g = torch.Generator().manual_seed(seed)
     dout = torch.randn(q.shape, generator=g).to("cuda", q.dtype)
     n0 = tfa.backward_launches
-    got = tfa.flash_attention_bwd(q, k, v, out, dout, causal=causal, window=window)
+    got = tfa.flash_attention_bwd(q, k, v, out, dout, causal=causal, window=window,
+                                  stats=stats)
     torch.cuda.synchronize()
     assert tfa.backward_launches == n0 + 1
-    want = tref.flash_attention_bwd_ref(q, k, v, out, dout, causal=causal, window=window)
+    if q.dtype == torch.bfloat16:
+        want = tuple(t.to(q.dtype) for t in tref.flash_attention_bwd_ref(
+            q.float(), k.float(), v.float(), out.float(), dout.float(), causal=causal,
+            window=window))
+    else:
+        want = tref.flash_attention_bwd_ref(q, k, v, out, dout, causal=causal, window=window)
     tol = BWD_TOL[q.dtype]
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == b.dtype == q.dtype and a.shape == b.shape, name
         torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol, msg=name)
-    again = tfa.flash_attention_bwd(q, k, v, out, dout, causal=causal, window=window)
+    again = tfa.flash_attention_bwd(q, k, v, out, dout, causal=causal, window=window,
+                                    stats=stats)
     for a, b in zip(got, again):
         assert torch.equal(a, b)          # no atomics: the same bits
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", ATTN_SHAPES)
+@pytest.mark.parametrize("shape", ATTN_SHAPES + BWD_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,window", MASKS)
 def test_flash_attention_backward_kernel_matches_plain(cuda, shape, dtype, causal, window):
@@ -430,10 +456,36 @@ def test_flash_attention_backward_misaligned_and_through_ops(cuda, dtype):
     n0 = tfa.backward_launches
     got = torch.autograd.grad(out, leaves, dout)
     assert tfa.backward_launches == n0 + 1
+    _, stats = tfa.flash_attention(*(t.detach() for t in leaves), causal=True, window=8,
+                                   return_stats=True)
     want = tfa.flash_attention_bwd(*(t.detach() for t in leaves), out.detach(), dout,
-                                   causal=True, window=8)
+                                   causal=True, window=8, stats=stats)
     for a, b_ in zip(got, want):
         assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ATTN_SHAPES + BWD_SHAPES)
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_flash_attention_forward_stats_match_plain(cuda, shape, causal, window):
+    """The bf16 forward's saved m and l against ``flash_attention_stats_ref``
+    (m within 1e-5 of 1 + |m|: scores summed in another order; l within
+    1e-4 relative: 2^x on the special-function unit), the output's bits
+    unchanged by saving them, and rows no key may see exactly (NEG_INF, Sk);
+    f32 keeps none."""
+    q, k, v = _attn_inputs(*shape, torch.bfloat16, seed=sum(shape) + window + 2)
+    out, stats = tfa.flash_attention(q, k, v, causal=causal, window=window,
+                                     return_stats=True)
+    assert torch.equal(out, tfa.flash_attention(q, k, v, causal=causal, window=window))
+    m, l = tref.flash_attention_stats_ref(q, k, v, causal=causal, window=window)
+    assert stats.shape == (2, *m.shape) and stats.dtype == torch.float32
+    assert float(((stats[0] - m).abs() / (1 + m.abs())).max()) <= 1e-5
+    torch.testing.assert_close(stats[1], l, rtol=1e-4, atol=0)
+    dead = m == tref.NEG_INF
+    assert torch.equal(stats[0][dead], m[dead]) and torch.equal(stats[1][dead], l[dead])
+    _, none = tfa.flash_attention(q.float(), k.float(), v.float(), causal=causal,
+                                  window=window, return_stats=True)
+    assert none is None
 
 
 def _misaligned(shape, dtype, seed):

@@ -2,7 +2,7 @@
 CUDA card, each beside its PyTorch library call.
 
     python3 tools/kernel_ab.py TREE [TREE ...] [--rounds N] [--seed N]
-                               [--groups retrieval,model]
+                               [--groups retrieval,model,attention]
 
 A TREE is the root of a checkout of this repository (its ``src/`` holds
 ``repro_torch``); to compare a variant, unpack a copy of the tree
@@ -44,6 +44,23 @@ whether a row's keys split into several chunks: the engine's default 8
 slots at S 1024 (random lens and lens S - 1), the paged phase's 8 rows of
 128 positions, and 2 rows of 4096.
 
+Group ``attention``: the bf16 ``flash_attention`` forward and its backward
+(``flash_attention_bwd``) at the training shape (q [2,512,24,128], k/v
+[2,512,8,128], causal: ``chip_smoke.py``'s phase 19) and at the oracle's
+forward shape (q [32,512,24,128], k/v [32,512,8,128], causal: phase 7),
+the forward against cuDNN SDPA's forward and the backward against one
+``torch.autograd.grad`` over SDPA's graph (GQA).  The forward is timed as
+inference launches it (no statistics) and as the training path does (with
+the row statistics the backward reads, where the tree's kernel saves them);
+the backward of a tree whose bf16 backward reads no statistics is called
+without them.  Bounds: each input read once and each output written once
+at 3.35 TB/s, and the unmasked products (2 in the forward, 5 in the
+backward) at the bf16 tensor cores' 989 TFLOP/s; errors: the largest
+|kernel - plain| / (1 + |plain|) against the tree's plain versions.  A row
+beyond its limit (forward 2e-2, backward 5e-2, as ``chip_smoke.py`` holds
+them), or a backward that gives other bits on a second call, is marked
+``DISAGREES``.  The backward's rows also print each of its kernels' time.
+
 Times are profiler device time per call (every kernel a call launches,
 the cluster scans' probe inversion included).  Prints the card's name and
 power limit, then one line per tree and kernel (median kernel ms, library
@@ -65,8 +82,10 @@ import sys
 
 PEAK_BW = 3.35e12   # H100 SXM device memory, bytes/s (NVIDIA datasheet)
 PEAK_FP32 = 67e12   # H100 SXM fp32 outside the tensor cores, FLOP/s (datasheet)
+PEAK_BF16 = 989e12  # H100 SXM bf16 tensor cores, dense, FLOP/s (datasheet)
 GROUPS = {"retrieval": ("similarity", "ivf_scan", "ivf_scan_q"),
-          "model": ("rmsnorm", "decode_attention")}
+          "model": ("rmsnorm", "decode_attention"),
+          "attention": ("flash_attention", "flash_attention_bwd")}
 MASKED_SCORE = -1e30
 RETRIEVAL = ("similarity", "similarity, one query", "cluster_scan", "cluster_scan_q",
              "cluster_scan, one query", "cluster_scan_q, one query")
@@ -94,6 +113,26 @@ def device_ms(torch, fn, reps: int, tries: int = 3) -> float:
             return sum(e.self_device_time_total / e.count * -(-e.count // reps)
                        for e in dev) / 1e3
     sys.exit(f"device_ms: the profiler kept no record of {reps} calls in {tries} windows")
+
+
+def kernel_split(torch, fn, reps: int) -> dict[str, float]:
+    """Each kernel's mean device time (ms) in one call of ``fn``, by its
+    name without template arguments and parameters, from the profiler's
+    records of ``reps`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.key.removeprefix("void ").replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0][:60]
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / reps / 1e3
+    return out
 
 
 def corpus(torch, seed: int, rows: int = 1_000_000, nq: int = 256, dim: int = 384):
@@ -220,6 +259,64 @@ def retrieval_rows(torch, seed: int) -> dict:
     return out
 
 
+def attention_rows(torch, seed: int) -> dict:
+    """The bf16 attention forward and backward beside SDPA's (module
+    docstring)."""
+    import inspect
+
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    saves_stats = "return_stats" in inspect.signature(kfa.flash_attention).parameters
+    out = {}
+    for label, B in (("training shape", 2), ("oracle shape", 32)):
+        S, H, HK, HD = 512, 24, 8, 128
+        q, k, v, dout = (torch.randn(B, S, h, HD, device="cuda", generator=g).to(torch.bfloat16)
+                         for h in (H, HK, HK, H))
+        pairs = S * (S + 1) // 2
+        fwd_bytes = 2 * 2 * (q.numel() + k.numel())          # q, k, v in; out
+        bwd_bytes = 2 * 4 * (q.numel() + k.numel())          # q, k, v, out, dout in; dq, dk, dv
+        o = kfa.flash_attention(q, k, v, causal=True)
+        plain = ref.flash_attention_ref(q, k, v, causal=True).float()
+        err = float(((o.float() - plain).abs() / (1 + plain.abs())).max())
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        lib_fwd = device_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+        out[f"flash_attention bf16, {label}"] = dict(
+            ms=device_ms(torch, lambda: kfa.flash_attention(q, k, v, causal=True), 10),
+            lib=lib_fwd, nbytes=fwd_bytes, flops=4 * B * H * HD * pairs, peak=PEAK_BF16,
+            err=err, tol=2e-2)
+        if saves_stats:
+            o, st = kfa.flash_attention(q, k, v, causal=True, return_stats=True)
+            fwd_train = lambda: kfa.flash_attention(q, k, v, causal=True, return_stats=True)
+            bwd = lambda: kfa.flash_attention_bwd(q, k, v, o, dout, causal=True, stats=st)
+        else:
+            fwd_train = lambda: kfa.flash_attention(q, k, v, causal=True)
+            bwd = lambda: kfa.flash_attention_bwd(q, k, v, o, dout, causal=True)
+        out[f"flash_attention bf16 with statistics, {label}"] = dict(
+            ms=device_ms(torch, fwd_train, 10), lib=lib_fwd, nbytes=fwd_bytes,
+            flops=4 * B * H * HD * pairs, peak=PEAK_BF16, err=err, tol=2e-2)
+        got = bwd()
+        want = ref.flash_attention_bwd_ref(q, k, v, o, dout, causal=True)
+        err = max(float(((a.float() - b.float()).abs() / (1 + b.float().abs())).max())
+                  for a, b in zip(got, want))
+        if not all(torch.equal(a, b) for a, b in zip(got, bwd())):
+            err = float("inf")                               # two calls differ
+        del got, want
+        so = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+        dot = dout.transpose(1, 2)
+        out[f"flash_attention_bwd bf16, {label}"] = dict(
+            ms=device_ms(torch, bwd, 10),
+            lib=device_ms(torch, lambda: torch.autograd.grad(so, (qt, kt, vt), dot,
+                                                             retain_graph=True), 10),
+            nbytes=bwd_bytes, flops=10 * B * H * HD * pairs, peak=PEAK_BF16, err=err,
+            tol=5e-2, split=kernel_split(torch, bwd, 10))
+        del q, k, v, dout, o, plain, qt, kt, vt, so
+        torch.cuda.empty_cache()
+    return out
+
+
 def child(tree: str, seed: int, groups: list[str]) -> None:
     sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
     import torch
@@ -230,6 +327,8 @@ def child(tree: str, seed: int, groups: list[str]) -> None:
     _build.SOURCES = tuple(n for gr in groups for n in GROUPS[gr])
     _build.build()
     out = retrieval_rows(torch, seed) if "retrieval" in groups else {}
+    if "attention" in groups:
+        out.update(attention_rows(torch, seed))
     if "model" not in groups:
         print(json.dumps(out))
         return
@@ -330,20 +429,27 @@ def main() -> None:
     for spec, rs in runs.items():
         for name in rs[0]:
             err = max(r[name]["err"] for r in rs)
-            bad = name in RETRIEVAL and not err <= 1e-5
+            tol = rs[0][name].get("tol", 1e-5 if name in RETRIEVAL else float("inf"))
+            bad = not err <= tol
             if bad:
                 wrong.append(f"{spec} | {name}")
             ms = statistics.median(r[name]["ms"] for r in rs)
             lib = statistics.median(r[name]["lib"] for r in rs)
             ratios = ", ".join(f"{r[name]['ms'] / r[name]['lib']:.3f}" for r in rs)
             nbytes, flops = rs[0][name]["nbytes"], rs[0][name].get("flops", 0)
-            bound = max(nbytes / PEAK_BW, flops / PEAK_FP32) * 1e3
-            by = "bytes" if nbytes / PEAK_BW >= flops / PEAK_FP32 else "operations"
+            peak = rs[0][name].get("peak", PEAK_FP32)
+            bound = max(nbytes / PEAK_BW, flops / peak) * 1e3
+            by = "bytes" if nbytes / PEAK_BW >= flops / peak else "operations"
             print(f"{spec} | {name}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s, "
                   f"{flops / ms / 1e9:.1f} TFLOP/s; bound {bound:.4f} ms by {by}, "
                   f"share {bound / ms:.3f}), library {lib:.4f} ms; kernel / library per "
                   f"run {ratios}; max abs err {err:.3g}"
                   + (" DISAGREES with its plain version" if bad else ""))
+            if "split" in rs[0][name]:
+                names = rs[0][name]["split"]
+                print(f"{spec} | {name}, its kernels (median ms): " + ", ".join(
+                    f"{n} {statistics.median(r[name]['split'].get(n, 0.0) for r in rs):.4f}"
+                    for n in names))
     if wrong:
         sys.exit("these kernels disagree with their plain versions: " + "; ".join(wrong))
 
