@@ -322,6 +322,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 --num-processes 2 --coordinator ...`` as two processes,
                 each process's final metrics against a one-process run of
                 its shard.
+ 21. the launch/ tooling — the cost counter and the roofline
+                (``launch/hlo_analysis.py``, ``roofline.py``, ``dryrun.py``,
+                ``hlo_debug.py``) on three llama3.2-3b steps at its catalog
+                config: phase 19's train step (4 x 512 tokens, 2
+                microbatches), a 512-token prefill and a decode step of 32
+                slots at 1024 positions.  (a) Each traced on meta tensors
+                (``dryrun.build_cell``); (b) run on the card under
+                ``CostMode``: FLOPs and bytes outside ``attn_core`` equal to
+                the meta trace's exactly, each kernel's charges equal to its
+                ``cost()`` at the launched shapes and its count to its
+                launch counter (train: 112 forward, 56 backward); (c) one
+                uncounted run under the profiler: wall, busy, idle share,
+                t_compute, t_memory, bottleneck, the roofline step time and
+                ``mfu_measured`` (model FLOPs over the bf16 peak times the
+                wall); (d) hlo_debug's top 20 rows of the train step; (e)
+                the meta trace's predicted peak memory beside
+                ``max_memory_allocated`` (printed only).
 
 Phases 15 and 16's launch counts are printed on a line of their own,
 ``serving launches {...}``, and each family of phases 17 and 18 its numbers
@@ -357,7 +374,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 import repro_torch  # noqa: E402
 from repro_torch.common import flatten, tree_to, unflatten  # noqa: E402
-from repro_torch.configs import get_config, get_smoke  # noqa: E402
+from repro_torch.configs import ShapeCell, get_config, get_smoke  # noqa: E402
 from repro_torch.core.backends import synth  # noqa: E402
 from repro_torch.core.backends.simulated import (SimConfig,  # noqa: E402
                                                  SimulatedEmbedder, SimulatedModel)
@@ -389,6 +406,7 @@ from repro_torch.kernels import ivf_scan as kivf  # noqa: E402
 from repro_torch.kernels import ivf_scan_q as kivfq  # noqa: E402
 from repro_torch.kernels import rmsnorm as krn  # noqa: E402
 from repro_torch.kernels import similarity as ksim  # noqa: E402
+from repro_torch.launch import dryrun, hlo_analysis, hlo_debug, roofline  # noqa: E402
 from repro_torch.models import attention, layers, registry, transformer  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.checkpoint import checkpoint as ckpt  # noqa: E402
@@ -413,11 +431,6 @@ HARD_ROWS = 250_000    # the hard corpus's rows, cut from the main corpus's 1M f
                        # run's time limit (its four host k-means builds are the cost)
 TOL = 1e-5             # unit-vector dot products summed in another order
 
-# NVIDIA datasheet peaks (dense): device-memory bytes/s, fp32 FLOP/s outside
-# the tensor cores (the retrieval kernels are IEEE fp32 SIMT by contract) and
-# bf16 tensor-core FLOP/s (the peak for the oracle's bf16 attention inputs).
-PEAKS = {"H100 SXM": (3.35e12, 67e12, 989e12), "H100 PCIe": (2.0e12, 51e12, 756e12),
-         "H100 NVL": (3.9e12, 60e12, 835e12)}
 
 _RETRIEVAL = (("similarity", ksim), ("cluster_scan", kivf), ("cluster_scan_q", kivfq))
 # every kernel: (name, its wrapper's module, the module's launch counter)
@@ -540,12 +553,6 @@ def free_card() -> None:
     """Return the memory of freed tensors to the card."""
     gc.collect()
     torch.cuda.empty_cache()
-
-
-def peaks(name: str) -> tuple[str, float, float, float]:
-    sku = "H100 PCIe" if "PCIe" in name else "H100 NVL" if "NVL" in name \
-        else "H100 SXM"
-    return (sku, *PEAKS[sku])
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -753,7 +760,7 @@ def retrieval_row(name, shape, err, run, plain_fn, lib_fn, lib_name, reps, nbyte
         ms, lib, ratios, clock = device_ms(run, reps), None, [], "profiler"
         assert ms is not None, f"{name}: the profiler kept no record"
     plain, pclock = plain_ms(plain_fn, 3)
-    bms, by = bound(nbytes, flops, bw, fp32)
+    bms, by = roofline.bound(nbytes, flops, hbm_bw=bw, peak=fp32)
     log(f"{name} {shape}, device time (profiler): kernel {ms:.4f} ms "
         f"({nbytes / ms / 1e6:.0f} GB/s, {flops / ms / 1e9:.1f} TFLOP/s, {bms / ms:.3f} of "
         f"the {by} bound {bms:.4f} ms), plain {plain:.4f} ms ({pclock}), {lib_name} "
@@ -810,7 +817,7 @@ def kernel_phase(args, idx_exact, idx_ivf, idx_q, queries, bw, fp32) -> dict:
         "similarity", f"q[{nq},{DIM}] x c[{nc},{DIM}]", err, lambda: ksim.similarity(q, c),
         lambda: ref.similarity_ref(q, c),
         lambda: torch.matmul(norm(q, dim=1), norm(c, dim=1).T), "F.normalize + matmul", 10,
-        4 * DIM * (nq + nc) + 4 * nq * nc, 2 * nq * nc * DIM, bw, fp32)
+        *ksim.cost(nq, nc, DIM)[::-1], bw, fp32)
 
     # the probes the IVF join computes (both IVF indexes share the quantizer)
     qp, nb = ref.pad_queries(q, 8)
@@ -867,16 +874,13 @@ def kernel_phase(args, idx_exact, idx_ivf, idx_q, queries, bw, fp32) -> dict:
         nbp, slots = probes.shape
         sizes = dv["store_mask"].sum(dim=1)                    # valid rows per cluster
         pairs = distinct_pairs(probes)
-        # scored (query, row) pairs: a block that probed one cluster from
-        # several slots needs its scores once (the other strips are copies)
-        valid_lanes = float(sizes[pairs].sum()) * 8
         uniq = torch.unique(probes.long())
-        # each input read once: the valid rows of the distinct probed clusters
-        # (padded lanes are masked, so need not be read), the whole mask, the
-        # queries and probe ids; the output plane written once
-        nbytes = int(sizes[uniq].sum()) * row_bytes + kc * L * 4 + qp.numel() * 4 \
-            + probes.numel() * 4 + qp.shape[0] * slots * L * 4
-        flops = int(2 * DIM * valid_lanes)
+        # the scan's cost(): the valid rows of each distinct (block, cluster)
+        # pair scored once against the block's 8 queries; the valid rows and
+        # mask rows of the distinct probed clusters, the queries and probe ids
+        # read once, the plane written once
+        flops, nbytes = (kivf if name == "cluster_scan" else kivfq).cost(
+            qp.shape[0], DIM, L, probes, sizes)
         # library yardstick: one gathered einsum over the whole batch, when the
         # gathered fp32 tiles, a possible copy of them for the batched matmul
         # (and the gathered int8 tiles) fit in the free memory
@@ -1179,11 +1183,6 @@ def ptxas_report(name: str) -> list[tuple[str, str, str]]:
     return [(n, used.get(f, "?"), spills.get(f, "?")) for n, f in zip(short, fns)]
 
 
-def bound(nbytes: float, flops: float, bw: float, peak: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / bw, flops / peak
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
 def oracle_kernel_phase(args, bw, fp32, bf16) -> dict:
     """flash_attention and rmsnorm against their plain versions at the
     oracle's shapes and at ragged edges, timed beside bound and library."""
@@ -1259,8 +1258,6 @@ def oracle_kernel_phase(args, bw, fp32, bf16) -> dict:
     assert tc and all(n > 0 for n in tc.values()), f"no HGMMA/HMMA in the bf16 kernel: {tc}"
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    pairs = S * (S + 1) // 2                               # unmasked (q, k) per head
-    flops = 4 * B * H * HD * pairs
     for dt in (b16, f32):
         q, k, v = qkv(B, S, S, H, HK, HD, dt)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -1269,8 +1266,8 @@ def oracle_kernel_phase(args, bw, fp32, bf16) -> dict:
             lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), 10)
         plain, pclock = plain_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True), 3)
         ev = cuda_ms(lambda: kfa.flash_attention(q, k, v, causal=True), 10)
-        nbytes = q.element_size() * (q.numel() + k.numel() + v.numel() + q.numel())
-        bms, by = bound(nbytes, flops, bw, bf16 if dt == b16 else fp32)
+        flops, nbytes = kfa.cost(B, S, S, H, HK, HD, causal=True, itemsize=q.element_size())
+        bms, by = roofline.bound(nbytes, flops, hbm_bw=bw, peak=bf16 if dt == b16 else fp32)
         log(f"flash_attention q[{B},{S},{H},{HD}] k/v[{B},{S},{HK},{HD}] {dt} causal, "
             f"device time (profiler): kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
             f"TFLOP/s), plain {plain:.4f} ms ({pclock}), SDPA {lib:.4f} ms "
@@ -1310,10 +1307,10 @@ def oracle_kernel_phase(args, bw, fp32, bf16) -> dict:
         lambda: krn.rmsnorm(x, sc, eps=1e-5),
         lambda: torch.nn.functional.rms_norm(x, (D,), sc16, eps=1e-5), 20)
     plain, pclock = plain_ms(lambda: ref.rmsnorm_ref(x, sc, eps=1e-5), 10)
-    nbytes = 2 * x.numel() * 2 + D * 4
-    bms, by = bound(nbytes, 4 * x.numel(), bw, fp32)
+    flops, nbytes = krn.cost(B * S, D, itemsize=x.element_size())
+    bms, by = roofline.bound(nbytes, flops, hbm_bw=bw, peak=fp32)
     out["rmsnorm"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib,
-                          bound_ms=bms, bound_by=by, nbytes=nbytes, flops=4 * x.numel(),
+                          bound_ms=bms, bound_by=by, nbytes=nbytes, flops=flops,
                           clock=clock, plain_clock=pclock,
                           shape=f"x[{B * S},{D}] bf16, scale[{D}] f32")
     log(f"rmsnorm x[{B * S},{D}] bf16, device time (profiler): kernel {ms:.4f} ms "
@@ -1343,9 +1340,8 @@ def e5_attention_row(g, bw, fp32) -> None:
     ms, lib, ratios, clock = interleaved_ms(lambda: kfa.flash_attention(q, k, v, causal=False),
                                      lambda: sdpa(qt, kt, vt), 10)
     plain, pclock = plain_ms(lambda: ref.flash_attention_ref(q, k, v, causal=False), 5)
-    flops = 4 * b * h * hd * s * s
-    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
-    bms, by = bound(nbytes, flops, bw, fp32)
+    flops, nbytes = kfa.cost(b, s, s, h, hk, hd, causal=False, itemsize=4)
+    bms, by = roofline.bound(nbytes, flops, hbm_bw=bw, peak=fp32)
     log(f"flash_attention E5 q/k/v[{b},{s},{h},{hd}] f32 non-causal, device time "
         f"(profiler): kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
         f"{plain:.4f} ms ({pclock}), SDPA {lib:.4f} ms; bound {bms:.4f} ms ({by}; the "
@@ -1694,10 +1690,8 @@ def decode_kernel_phase(args, bw, bf16) -> dict:
                          .float() - ref.decode_attention_ref(q, k, v, lens).float())
                         .abs().max())
         rows = int((lens.clamp(max=S - 1) + 1).sum())          # attended cache rows
-        es = q.element_size()
-        nbytes = rows * HK * HD * 2 * es + 2 * q.numel() * es + lens.numel() * 4
-        flops = 4 * rows * H * HD
-        bms, by = bound(nbytes, flops, bw, bf16)
+        flops, nbytes = kda.cost(B, S, H, HK, HD, lens, itemsize=q.element_size())
+        bms, by = roofline.bound(nbytes, flops, hbm_bw=bw, peak=bf16)
         log(f"decode_attention q[{B},1,{H},{HD}] k/v[{B},{S},{HK},{HD}] {dt}, {rows} "
             f"attended rows, device time (profiler): kernel {ms:.4f} ms "
             f"({nbytes / ms / 1e6:.0f} GB/s, {bms / ms:.3f} of the {by} bound {bms:.4f} ms "
@@ -3649,9 +3643,8 @@ def rec_kernel_rows(args, bw, bf16) -> None:
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         ms, lib, ratios, clock = interleaved_ms(lambda: kfa.flash_attention(q, k, v, causal=causal),
                                          lambda: sdpa(qt, kt, vt, is_causal=causal), 10)
-        pairs = s * (s + 1) // 2 if causal else s * s
-        flops = 4 * b * h * hd * pairs
-        bms, by = bound(2 * 4 * q.numel(), flops, bw, bf16)
+        flops, nbytes = kfa.cost(b, s, s, h, h, hd, causal=causal)
+        bms, by = roofline.bound(nbytes, flops, hbm_bw=bw, peak=bf16)
         log(f"flash_attention {label} q/k/v[{b},{s},{h},{hd}] bf16 causal={causal}: max abs "
             f"err {e:.3g} (tol {ATTN_TOL[b16]} + rel); device time (profiler) kernel "
             f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {bms / ms:.3f} of the {by} bound "
@@ -3670,8 +3663,8 @@ def rec_kernel_rows(args, bw, bf16) -> None:
         ms, lib, ratios, clock = interleaved_ms(lambda: kda.decode_attention(q, k, v, lens),
                                          lambda: sdpa(qt, kt, vt, attn_mask=mask), 20)
         rows = int((lens + 1).sum())
-        nbytes = rows * h * hd * 2 * 2 + 2 * q.numel() * 2 + b * 4
-        bms, by = bound(nbytes, 4 * rows * h * hd, bw, bf16)
+        flops, nbytes = kda.cost(b, s, h, h, hd, lens)
+        bms, by = roofline.bound(nbytes, flops, hbm_bw=bw, peak=bf16)
         log(f"decode_attention {label} q[{b},1,{h},{hd}] k/v[{b},{s},{h},{hd}] bf16, {rows} "
             f"attended rows: max abs err {e:.3g}; device time (profiler) kernel {ms:.4f} ms "
             f"({nbytes / ms / 1e6:.0f} GB/s, {bms / ms:.3f} of the {by} bound {bms:.4f} ms), "
@@ -3901,10 +3894,10 @@ def attention_bwd_phase(args, bw, fp32, bf16) -> dict:
     log(f"flash_attention backward bf16 SASS (cuobjdump -sass): HGMMA per instance {hgmma}")
     assert all(c and all(n > 0 for n in c.values()) for c in hgmma.values()), \
         f"no HGMMA in a bf16 backward kernel: {hgmma}"
-    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
-    flops = 10 * mb * H * HD * pairs          # S, dP, dV, dK, dQ over the unmasked pairs
-    nbytes = q.element_size() * 4 * (q.numel() + k.numel())   # q,k,v,out,dout in; dq,dk,dv out
-    bms, by = bound(nbytes, flops, bw, bf16)
+    # S, dP, dV, dK, dQ over the unmasked pairs; q, k, v, out, dout in, dq, dk, dv out
+    flops, nbytes = kfa.backward_cost(mb, TRAIN_SEQ, TRAIN_SEQ, H, HK, HD, causal=True,
+                                      itemsize=q.element_size())
+    bms, by = roofline.bound(nbytes, flops, hbm_bw=bw, peak=bf16)
     log(f"flash_attention backward: largest |diff|/(1+|plain|) over the cases f32 "
         f"{worst[f32]:.3g}, bf16 {worst[b16]:.3g}; largest bf16 |diff| {worst_abs:.3g}")
     log(f"flash_attention backward q[{mb},{TRAIN_SEQ},{H},{HD}] k/v[{mb},{TRAIN_SEQ},{HK},{HD}] "
@@ -4916,6 +4909,141 @@ def dist_phase(args, smi: str) -> dict:
     return {"ranks": ranks, "launch_train": f}
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the launch/ tooling on the card (cost counter, roofline)
+# ---------------------------------------------------------------------------
+
+# llama3.2-3b at its catalog config: phase 19's train step (4 x 512 tokens in
+# 2 microbatches), one 512-token prefill, a decode step of 32 slots at 1024
+# positions (the generate phase's): (cell, microbatches)
+RL_CELLS = {"train": (ShapeCell("train_4x512", TRAIN_SEQ, TRAIN_BATCH, "train"), TRAIN_MICRO),
+            "prefill": (ShapeCell("prefill_1x512", 512, 1, "prefill"), None),
+            "decode": (ShapeCell("decode_32x1024", 1024, 32, "decode"), None)}
+
+
+def outside(costs, scope: str = "attn_core") -> tuple[float, float]:
+    """(FLOPs, bytes) outside ``scope`` (integers below 2^53: exact)."""
+    f, b = costs.scopes.get(scope, (0.0, 0.0))
+    return costs.flops - f, costs.bytes - b
+
+
+def log_row_diff(meta, card, scope: str = "attn_core", n: int = 30) -> None:
+    """The grouped rows outside ``scope`` where the two runs differ."""
+    a = {k: v for k, v in meta.rows.items() if k[2] != scope}
+    b = {k: v for k, v in card.rows.items() if k[2] != scope}
+    diff = sorted(set(a) | set(b), key=lambda k: -abs((a.get(k) or [0, 0, 0])[2]
+                                                      - (b.get(k) or [0, 0, 0])[2]))
+    log(f"rows outside {scope} that differ ({len([k for k in diff if a.get(k) != b.get(k)])}):")
+    for k in [k for k in diff if a.get(k) != b.get(k)][:n]:
+        log(f"  {k}: meta {a.get(k)}, card {b.get(k)}")
+
+
+def expected_charges(cfg, kind: str, cell, mb) -> dict:
+    """Each kernel's [launches, FLOPs, bytes] that a step of ``kind`` must
+    charge: its module's cost() at the launched shapes, times the launches
+    (bf16; the train step's forward runs twice a layer and microbatch under
+    remat, with the row statistics the backward reads)."""
+    L, H, HK, HD = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    S, B = cell.seq_len, cell.global_batch
+    if kind == "train":
+        b = B // mb
+        plan = {"flash_attention": (2 * L * mb, kfa.cost(b, S, S, H, HK, HD, stats=True)),
+                "flash_attention_bwd": (L * mb, kfa.backward_cost(b, S, S, H, HK, HD,
+                                                                 stats=True))}
+    elif kind == "prefill":
+        plan = {"flash_attention": (L, kfa.cost(B, S, S, H, HK, HD))}
+    else:
+        plan = {"decode_attention": (L, kda.cost(B, S, H, HK, HD, [S - 1] * B))}
+    return {k: [n, float(n * f), float(n * b)] for k, (n, (f, b)) in plan.items()}
+
+
+def roofline_phase(args, smi: str) -> dict:
+    """Phase 21: the cost counter and the roofline on three full-width
+    llama3.2-3b steps (``RL_CELLS``).  (a) Each step traced on meta tensors
+    (``dryrun.build_cell``, no mesh); (b) the same step on the card under
+    ``CostMode`` (the kernel path): FLOPs and bytes outside ``attn_core``
+    equal to the meta trace's exactly, each kernel's charges equal to its
+    cost() at the launched shapes and its count to the module's launch
+    counter; (c) one uncounted run under the profiler: wall, busy, idle
+    share, the roofline terms at the card's datasheet peaks and the wall's
+    share of the model FLOPs' time (``mfu_measured``); (d) hlo_debug's top
+    20 rows of the train step; (e) the meta trace's predicted peak memory
+    beside ``max_memory_allocated`` of the timed run (printed only)."""
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN)
+    pk = roofline.peaks(torch.cuda.get_device_name(0))
+    out = {}
+    for kind, (cell, mb) in RL_CELLS.items():
+        t1 = time.perf_counter()
+        traced, _ = dryrun.build_cell(TRAIN, cell, None, microbatches=mb, cfg=cfg)
+        meta = hlo_analysis.analyze(traced.fn, *traced.args, rows=True, flop_counter=True)
+        del traced
+        meta_s = time.perf_counter() - t1
+        free_card()
+        traced, _ = dryrun.build_cell(TRAIN, cell, None, microbatches=mb, cfg=cfg,
+                                      device="cuda", seed=args.seed + 21)
+        traced.run()                                   # warm-up, uncounted
+        torch.cuda.synchronize()
+        zero_launches()
+        t1 = time.perf_counter()
+        card = hlo_analysis.analyze(traced.fn, *traced.args, rows=True)
+        torch.cuda.synchronize()
+        counted_s = time.perf_counter() - t1
+        launched = {n: getattr(m, a) for n, m, a in _KERNELS if getattr(m, a)}
+        want = expected_charges(cfg, kind, cell, mb)
+        log(f"(a, b) {TRAIN} {kind} {cell.name}: meta trace {meta_s:.1f} s, counted run on "
+            f"the card {counted_s:.1f} s; FLOPs {card.flops:.6g} (meta {meta.flops:.6g}), bytes "
+            f"{card.bytes:.6g} (meta {meta.bytes:.6g}); outside attn_core card "
+            f"{outside(card)}, meta {outside(meta)}; attn_core card "
+            f"{card.scopes.get('attn_core')}, meta {meta.scopes.get('attn_core')}; kernels "
+            f"charged {card.kernels}, cost() {want}, launch counters {launched}")
+        if outside(card) != outside(meta):
+            log_row_diff(meta, card)
+        assert outside(card) == outside(meta), (kind, outside(card), outside(meta))
+        assert card.kernels == want, (kind, card.kernels, want)
+        assert launched == {k: v[0] for k, v in want.items()}, (kind, launched, want)
+        assert meta.kernels == {} and meta.memory["flop_counter_flops"] == meta.flops
+        # (c) one uncounted run under the profiler
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        wall, busy, nrec = device_busy(traced.run)
+        peak = torch.cuda.max_memory_allocated()
+        model_flops = roofline.model_flops_for_cell(cfg, cell)
+        t_c, t_m = card.flops / pk.bf16, card.bytes / pk.hbm_bw
+        step = max(t_c, t_m)
+        r = dict(wall_ms=wall * 1e3, busy_ms=busy, idle=None if busy is None else
+                 1 - busy / (wall * 1e3), t_compute_ms=t_c * 1e3, t_memory_ms=t_m * 1e3,
+                 bottleneck="compute" if t_c >= t_m else "memory", step_ms=step * 1e3,
+                 model_flops=model_flops, mfu_measured=model_flops / (pk.bf16 * wall),
+                 mfu_roofline=model_flops / (pk.bf16 * step), upcast_bytes=card.upcast_bytes,
+                 peak_predicted=meta.memory["peak"], peak_measured=float(peak))
+        log(f"(c) {TRAIN} {kind} {cell.name} on {smi}: wall {r['wall_ms']:.2f} ms, device busy "
+            + ("not measured (the profiler kept no record)" if busy is None else
+               f"{busy:.2f} ms ({nrec} records), idle share {r['idle']:.4f}")
+            + f"; roofline at {roofline.sku(torch.cuda.get_device_name(0))}'s datasheet peaks "
+            f"({pk.bf16 / 1e12:.0f} TFLOP/s bf16, {pk.hbm_bw / 1e12} TB/s): t_compute "
+            f"{r['t_compute_ms']:.3f} ms, t_memory {r['t_memory_ms']:.3f} ms, bottleneck "
+            f"{r['bottleneck']}, roofline step {r['step_ms']:.3f} ms (mfu at it "
+            f"{r['mfu_roofline']:.4f}); model FLOPs {model_flops:.6g}, mfu_measured "
+            f"{r['mfu_measured']:.4f}; bf16->f32 casts {card.upcast_bytes / 1e9:.3f} GB of "
+            f"{card.bytes / 1e9:.3f} GB")
+        log(f"(e) {TRAIN} {kind} {cell.name}: predicted peak {r['peak_predicted'] / 2**30:.2f} "
+            f"GiB (meta trace: argument {meta.memory['argument'] / 2**30:.2f}, temp "
+            f"{meta.memory['temp'] / 2**30:.2f}), max_memory_allocated "
+            f"{peak / 2**30:.2f} GiB")
+        if kind == "train":   # (d)
+            top, _ = hlo_debug.top_contributors(card, 20)
+            log(f"(d) hlo_debug top 20 of the {TRAIN} train step on the card "
+                "(GB, GFLOP, count, op, scope, shapes):")
+            for b, f, n, op, sc, shapes in top:
+                log(f"  {b / 1e9:9.3f} {f / 1e9:10.1f} {n:6d} {op[:30]:30} {sc:10} {shapes[:90]}")
+        out[kind] = r
+        del traced, card, meta
+        free_card()
+    log(f"phase 21 on {smi}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -4931,7 +5059,8 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
-    sku, bw, fp32, bf16 = peaks(kind)
+    sku, pk = roofline.sku(kind), roofline.peaks(kind)
+    bw, fp32, bf16 = pk.hbm_bw, pk.fp32, pk.bf16
     log(f"device: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; peaks for {sku}: "
         f"{bw / 1e12} TB/s, {fp32 / 1e12} TFLOP/s fp32, {bf16 / 1e12} TFLOP/s bf16")
@@ -5079,6 +5208,11 @@ def main() -> None:
     # 20. the distribution layer across four ranks on the card
     dist_phase(args, smi)
     lap("20 distribution layer")
+
+    # 21. the launch/ tooling: cost counter and roofline of three steps
+    rl = roofline_phase(args, smi)
+    log(f"{TRAIN} roofline on {smi}: {json.dumps(rl)}")
+    lap("21 roofline")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"device: {smi}")

@@ -2,12 +2,12 @@
 ``repro.configs``).
 
 Every module exports CONFIG (full size) and smoke() (a reduced config of the
-same family that runs on the CPU).  Only the ``dense`` family runs in the
-port so far; the others raise in ``models.registry``.
+same family that runs on the CPU); every family runs in the port
+(``models.registry``).
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeCell, cell_applicable, input_specs
 
 from repro_torch.configs import (  # noqa: E402
     llama_3_2_vision_11b,
@@ -48,4 +48,5 @@ def get_smoke(name: str) -> ModelConfig:
     return _MODULES[name].smoke()
 
 
-__all__ = ["ARCHS", "ModelConfig", "get_config", "get_smoke"]
+__all__ = ["ARCHS", "SHAPES", "ModelConfig", "ShapeCell", "get_config", "get_smoke",
+           "cell_applicable", "input_specs"]

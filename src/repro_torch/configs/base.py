@@ -6,13 +6,14 @@ one module per assigned architecture lives next to this file and exports
 that runs on the CPU).  A config carries across from ``repro.configs``
 unchanged, field for field; ``activation_dtype`` names a torch dtype.
 
-The reference's ``SHAPES`` / ``input_specs`` build ``jax.ShapeDtypeStruct``
-stand-ins for its multi-pod dry run; they arrive with the ``launch/``
-tooling (ROADMAP item 13).
+``SHAPES`` are the assigned input-shape cells; ``input_specs`` builds the
+meta-tensor stand-ins for every model input of a given (arch, shape), which
+the dry run (``launch/dryrun.py``) traces the real step on.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Literal
 
 import torch
@@ -93,7 +94,84 @@ class ModelConfig:
     def is_moe(self) -> bool:
         return self.num_experts > 0
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Whether the arch supports ~O(S) long-context decode (assignment rule)."""
+        return self.family in ("ssm", "hybrid")
+
     def param_count(self) -> int:
         from repro_torch import common
         from repro_torch.models.registry import param_specs
         return common.param_count(param_specs(self))
+
+    def active_param_count(self) -> int:
+        """Activated params per token (MoE counts experts_per_token of experts)."""
+        from repro_torch.models.registry import param_specs
+        total = 0
+        for spec in param_specs(self).values():
+            n = math.prod(spec.shape)
+            if "experts" in spec.axes:
+                e_dim = spec.shape[spec.axes.index("experts")]
+                n = n * self.experts_per_token // max(e_dim, 1)
+            total += n
+        return total
+
+
+# ---------------------------------------------------------------------------
+# Assigned shape cells
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+SHAPES: dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524_288, 1, "decode"),
+}
+
+
+def cell_applicable(cfg: ModelConfig, cell: ShapeCell) -> tuple[bool, str]:
+    """Assignment skip rules. Returns (applicable, reason-if-not)."""
+    if cell.name == "long_500k" and not cfg.sub_quadratic:
+        return False, "long_500k needs sub-quadratic attention; skipped for pure full-attention arch (see DESIGN.md)"
+    return True, ""
+
+
+def input_specs(cfg: ModelConfig, cell: ShapeCell, *, per_host_batch: int | None = None) -> dict:
+    """Stand-ins on the ``meta`` device (no storage) for every model input
+    of a given cell, in the shapes of the reference's ``jax.ShapeDtypeStruct``
+    ones.  Dtypes are the port's: ``tokens``, ``labels`` and ``cache_len``
+    int32 (what the port's models and data pipeline take), ``image_embeds``
+    and ``audio_frames`` ``cfg.activation_dtype``.
+
+    Modality frontends are stubs per the assignment: VLM gets precomputed
+    patch embeddings, whisper gets precomputed audio-frame embeddings.
+    """
+    b = per_host_batch or cell.global_batch
+    s = cell.seq_len
+    i32, act = torch.int32, cfg.activation_dtype
+
+    def sd(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    specs: dict = {}
+    if cell.kind == "train":
+        specs["tokens"] = sd((b, s), i32)
+        specs["labels"] = sd((b, s), i32)
+    elif cell.kind == "prefill":
+        specs["tokens"] = sd((b, s), i32)
+    else:  # decode: one new token against a cache of length s
+        specs["tokens"] = sd((b, 1), i32)
+        specs["cache_len"] = sd((), i32)
+    if cfg.family == "vlm":
+        specs["image_embeds"] = sd((b, cfg.num_image_tokens, cfg.d_model), act)
+    if cfg.family == "audio":
+        specs["audio_frames"] = sd((b, cfg.num_audio_frames, cfg.d_model), act)
+    return specs

@@ -80,7 +80,8 @@ def make_sharded_train_step(cfg: ModelConfig, opt_cfg: opt.OptimizerConfig, mesh
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics) under the ``"default"`` rules: ``params`` and ``opt_state`` are
     this rank's shards (updated in place), ``batch`` the global
-    {"tokens", "labels"} [B, S] on every rank; metrics as the single-device
+    {"tokens", "labels"} [B, S] on every rank, with the model's other
+    inputs (``image_embeds``, ``audio_frames``) when it takes them; metrics as the single-device
     step's at one microbatch."""
     pspecs = registry.param_specs(cfg)
     psh = flatten(shd.spec_shardings(pspecs, mesh))
@@ -115,7 +116,9 @@ def make_sharded_train_step(cfg: ModelConfig, opt_cfg: opt.OptimizerConfig, mesh
                 tree[p] = psh[p].gather(t).detach().requires_grad_()
                 tree[p].register_post_accumulate_grad_hook(keep(p, None, psh[p]))
         with shd.activation_rules(mesh, "default"):     # the remat replays meet it too
-            logits, aux = registry.forward(cfg, unflatten(tree), tokens[rows],
+            extra = {k: v[rows] for k, v in batch.items()
+                     if k not in ("tokens", "labels")} or None
+            logits, aux = registry.forward(cfg, unflatten(tree), tokens[rows], extra=extra,
                                            remat=cfg.remat)
             lab = labels[rows]
             valid = (lab != TOKENIZER.pad_id) & (lab >= 0)

@@ -27,6 +27,13 @@ SOURCES = ("similarity", "ivf_scan", "ivf_scan_q", "flash_attention", "rmsnorm",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# the active cost counter's charge, or None: after each launch a wrapper
+# passes it the kernel's name and a function that returns the launch's
+# ``cost()`` (FLOPs, bytes), which the counter evaluates with its dispatch
+# mode off (launch/hlo_analysis.CostMode.charge); with no counter active the
+# hook is this one test
+cost_counter = None
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _functions: dict[tuple[str, str], ctypes._CFuncPtr] = {}

@@ -55,6 +55,23 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"window {window} < 0")
 
 
+def cost(b: int, s: int, h: int, hk: int, hd: int, lens, *, window: int = 0,
+         itemsize: int = 2) -> tuple[int, int]:
+    """(FLOPs, bytes) of one launch, as its bound counts them, for this
+    call's ``lens`` (a [B] tensor or sequence): the cache rows a row attends
+    (positions p <= lens, p < S, and lens - p < window under a window), each
+    read once as K and V; 4 H hd FLOPs a row; q read and the
+    output written once, and lens read."""
+    lens = lens.tolist() if isinstance(lens, torch.Tensor) else list(lens)
+    rows = 0
+    for n in map(int, lens):
+        lo = max(n - window + 1, 0) if window else 0
+        rows += max(min(n, s - 1) - lo + 1, 0)
+    flops = 4 * rows * h * hd
+    nbytes = rows * hk * hd * 2 * itemsize + 2 * b * h * hd * itemsize + 4 * len(lens)
+    return flops, nbytes
+
+
 def chunk_for(b: int, hk: int, h: int, s: int, sms: int) -> int:
     """Keys per block: CHUNK_KEYS, halved (down to MIN_CHUNK) while the
     ceil(s / chunk) chunks of each (batch row, kv-head, group of up to 8
@@ -124,4 +141,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             hk, hd, attn_scale(hd), int(window), chunk, int(vec), q.device.index, stream)
     _build.check(rc, "decode_attention", "decode_attention kernel")
     _build.count_launch(globals())
+    if _build.cost_counter is not None:
+        _build.cost_counter("decode_attention", lambda: cost(
+            b, s, h, hk, hd, lens, window=window, itemsize=q.element_size()))
     return out

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -44,6 +45,38 @@ _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_longlong] * 6 + \
     [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _BWD_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] + [ctypes.c_longlong] * 6 + \
     [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def pairs(sq: int, sk: int, *, causal: bool, window: int) -> int:
+    """The unmasked (q, k) pairs of one head: positions count from 0 on both
+    axes (``ref.flash_attention_ref``); causal keeps k <= q, a window keeps
+    q - k < window."""
+    i = np.arange(sq, dtype=np.int64)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros_like(i)
+    hi = np.minimum(i, sk - 1) if causal else np.full_like(i, sk - 1)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def cost(b: int, sq: int, sk: int, h: int, hk: int, hd: int, *, causal: bool = True,
+         window: int = 0, itemsize: int = 2, stats: bool = False) -> tuple[int, int]:
+    """(FLOPs, bytes) of one forward launch, as its bound counts them: the S
+    and PV products over the unmasked pairs (4 B H hd a pair); q, k, v read
+    once and the output written once, and with ``stats`` the f32 row
+    statistics [2, B, H, Sq] written too."""
+    flops = 4 * b * h * hd * pairs(sq, sk, causal=causal, window=window)
+    nbytes = itemsize * 2 * (b * sq * h * hd + b * sk * hk * hd) + (8 * b * h * sq if stats else 0)
+    return flops, nbytes
+
+
+def backward_cost(b: int, sq: int, sk: int, h: int, hk: int, hd: int, *, causal: bool = True,
+                  window: int = 0, itemsize: int = 2, stats: bool = False) -> tuple[int, int]:
+    """(FLOPs, bytes) of one backward call, as its bound counts them: S, dP,
+    dV, dK and dQ over the unmasked pairs (10 B H hd a pair); q, k, v, out
+    and dout read once and dq, dk, dv written once, and with ``stats`` the
+    forward's row statistics read too."""
+    flops = 10 * b * h * hd * pairs(sq, sk, causal=causal, window=window)
+    nbytes = itemsize * 4 * (b * sq * h * hd + b * sk * hk * hd) + (8 * b * h * sq if stats else 0)
+    return flops, nbytes
 
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -91,6 +124,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 q.device.index, _build.stream_of(q))
         _build.check(rc, "flash_attention", "flash_attention kernel")
         _build.count_launch(globals())
+        if _build.cost_counter is not None:
+            _build.cost_counter("flash_attention", lambda: cost(
+                b, sq, sk, h, hk, hd, causal=causal, window=window,
+                itemsize=q.element_size(), stats=stats is not None))
     return (out, stats) if return_stats else out
 
 
@@ -138,6 +175,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             _build.stream_of(q))
     _build.check(rc, "flash_attention_bwd", "flash_attention backward kernel")
     _build.count_launch(globals(), "backward_launches")
+    if _build.cost_counter is not None:
+        _build.cost_counter("flash_attention_bwd", lambda: backward_cost(
+            b, sq, sk, h, hk, hd, causal=causal, window=window, itemsize=q.element_size(),
+            stats=bf16))
     return dq, dk, dv
 
 

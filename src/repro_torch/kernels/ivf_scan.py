@@ -68,6 +68,29 @@ def check_scan_shapes(queries, store, mask, probe_blocks, block_q: int) -> None:
         raise ValueError(f"block_q={block_q}: the kernels are built for {BLOCK_Q}")
 
 
+def cost(nq: int, d: int, L: int, probe_blocks, valid, *, block_q: int = 8,
+         row_bytes: int | None = None) -> tuple[int, int]:
+    """(FLOPs, bytes) of one cluster-scan launch, as its bound counts them,
+    for this call's probes (``probe_blocks`` [nb, slots]) and each cluster's
+    valid rows (``valid`` [kc], the mask's row sums): the f32 products of
+    each distinct (query block, cluster) pair's valid rows against the
+    block's ``block_q`` queries (a block that probed a cluster from several
+    slots needs its scores once); bytes: the valid rows (``row_bytes`` each,
+    f32 by default) and the mask row of each distinct probed cluster, the
+    queries and probe ids read once, the score plane written once."""
+    pb = torch.as_tensor(probe_blocks).long().cpu()
+    valid = torch.as_tensor(valid).cpu().double()
+    kc = valid.shape[0]
+    nb, slots = pb.shape
+    ok = (pb >= 0) & (pb < kc)
+    uniq = torch.unique(pb[ok])
+    pair_ids = torch.unique(torch.arange(nb)[:, None].expand(nb, slots)[ok] * kc + pb[ok])
+    flops = 2 * d * block_q * int(valid[pair_ids % kc].sum())
+    nbytes = int(valid[uniq].sum()) * (4 * d if row_bytes is None else row_bytes) \
+        + len(uniq) * L * 4 + nq * d * 4 + nb * slots * 4 + nq * slots * L * 4
+    return flops, nbytes
+
+
 CHUNK = 128                          # rows of a cluster one CTA scans
 INT32_MAX = 2**31 - 1
 
@@ -110,6 +133,9 @@ def cluster_scan(queries: torch.Tensor, store: torch.Tensor, mask: torch.Tensor,
             L, d, slots, int(normalize), dev.index, _build.stream_of(queries))
     _build.check(rc, "ivf_scan", "cluster_scan kernel")
     _build.count_launch(globals())
+    if _build.cost_counter is not None:
+        _build.cost_counter("cluster_scan", lambda: cost(nb * block_q, d, L, probe_blocks,
+                                                         mask.sum(dim=1), block_q=block_q))
     return out
 
 

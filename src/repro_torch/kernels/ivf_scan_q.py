@@ -25,6 +25,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ivf_scan import (check_launch, check_scan_shapes,
                                           probe_lists)
+from repro_torch.kernels.ivf_scan import cost as scan_cost
 from repro_torch.kernels.ref import (_sharded_scan, _unitize, ivf_probes,
                                      pad_queries)
 
@@ -32,6 +33,13 @@ launches = 0   # kernel launches since the caller last set this to 0
 
 _ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int] + \
     [ctypes.c_longlong] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def cost(nq: int, d: int, L: int, probe_blocks, valid, *, block_q: int = 8
+         ) -> tuple[int, int]:
+    """(FLOPs, bytes) of one launch, as ``ivf_scan.cost`` counts them, each
+    valid row read as its d int8 values and its f32 scale."""
+    return scan_cost(nq, d, L, probe_blocks, valid, block_q=block_q, row_bytes=d + 4)
 
 
 def aligned_rows(queries: torch.Tensor) -> torch.Tensor:
@@ -78,6 +86,9 @@ def cluster_scan_q(queries: torch.Tensor, store_q: torch.Tensor,
             _build.stream_of(queries))
     _build.check(rc, "ivf_scan_q", "cluster_scan_q kernel")
     _build.count_launch(globals())
+    if _build.cost_counter is not None:
+        _build.cost_counter("cluster_scan_q", lambda: cost(nb * block_q, d, L, probe_blocks,
+                                                           mask.sum(dim=1), block_q=block_q))
     return out
 
 

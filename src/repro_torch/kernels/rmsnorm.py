@@ -24,6 +24,12 @@ _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longl
                                  ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
+def cost(rows: int, d: int, *, itemsize: int = 2) -> tuple[int, int]:
+    """(FLOPs, bytes) of one launch, as its bound counts them: 4 FLOPs a
+    value; x read and the output written once, the f32 scale read."""
+    return 4 * rows * d, 2 * rows * d * itemsize + 4 * d
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
     """x [..., d] (f32 or bf16), scale [d] f32 -> like ``x``."""
     if not isinstance(x, torch.Tensor) or x.dim() == 0:
@@ -41,4 +47,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5) -> torch
             x.numel() // d, d, eps, x.device.index, _build.stream_of(x))
     _build.check(rc, "rmsnorm", "rmsnorm kernel")
     _build.count_launch(globals())
+    if _build.cost_counter is not None:
+        _build.cost_counter("rmsnorm", lambda: cost(x.numel() // d, d,
+                                                    itemsize=x.element_size()))
     return out

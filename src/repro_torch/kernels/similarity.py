@@ -25,6 +25,12 @@ _ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + \
     [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
+def cost(nq: int, nc: int, d: int) -> tuple[int, int]:
+    """(FLOPs, bytes) of one launch, as its bound counts them: the f32
+    products; queries and corpus read once, the score plane written once."""
+    return 2 * nq * nc * d, 4 * d * (nq + nc) + 4 * nq * nc
+
+
 def similarity(queries: torch.Tensor, corpus: torch.Tensor, *,
                normalize: bool = True) -> torch.Tensor:
     """queries [nq, d] f32, corpus [nc, d] f32 -> [nq, nc] f32 scores."""
@@ -44,6 +50,8 @@ def similarity(queries: torch.Tensor, corpus: torch.Tensor, *,
             int(normalize), queries.device.index, _build.stream_of(queries))
     _build.check(rc, "similarity", "similarity kernel")
     _build.count_launch(globals())
+    if _build.cost_counter is not None:
+        _build.cost_counter("similarity", lambda: cost(nq, nc, d))
     return out
 
 

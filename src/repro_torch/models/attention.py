@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.common import ParamSpec
+from repro_torch.common.scopes import scoped
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ref import NEG_INF, attn_scale
 from repro_torch.models.layers import apply_rope, einsum, einsum_f32
@@ -79,6 +80,7 @@ def _repeat_kv(k, num_heads):
     return k.repeat_interleave(num_heads // hk, dim=2)
 
 
+@scoped("attn_core")
 def gqa_attend(q, k, v, mask):
     """q:[B,Sq,H,hd] k,v:[B,Sk,Hk,hd] mask: broadcastable to [B,1,Sq,Sk] (bool).
 
@@ -101,7 +103,9 @@ def gqa_attend(q, k, v, mask):
     scores = einsum_f32("bqhd,bshd->bhqs", q, k) * scale
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    return einsum("bhqs,bshd->bqhd", probs.to(v.dtype), v)
+    # contiguous, as the kernel writes it: the out projection then reads it
+    # without a copy of its own
+    return einsum("bhqs,bshd->bqhd", probs.to(v.dtype), v).contiguous()
 
 
 def make_mask(q_pos, k_pos, *, causal: bool, window: int = 0, k_valid=None):
@@ -137,19 +141,34 @@ def self_attention(params, x, *, cfg: ModelConfig, causal: bool = True):
         else:
             impl = "chunked" if s > 8 * cfg.attn_q_chunk else "full"
     if impl == "pallas":
-        from repro_torch.kernels import ops as kops
-        # the kernel reads the [B,S,H,hd] layout the projections produce;
-        # .contiguous() copies only if a projection returned a strided view
-        out = kops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                   causal=causal, window=cfg.sliding_window)
+        out = _kernel_attention(q, k, v, causal=causal, window=cfg.sliding_window)
     elif impl == "chunked":
         out = _kv_chunked_attention(q, k, v, cfg=cfg, causal=causal)
     else:
-        mask = make_mask(pos, pos, causal=causal, window=cfg.sliding_window)
-        out = gqa_attend(q, k, v, mask[None, None])
+        out = _full_attention(q, k, v, causal=causal, window=cfg.sliding_window)
     return out_proj(params, out), (k, v)
 
 
+@scoped("attn_core")
+def _full_attention(q, k, v, *, causal: bool, window: int):
+    """``gqa_attend`` under the mask of positions 0..S-1 (made inside the
+    scope: the kernel path makes none)."""
+    pos = torch.arange(q.shape[1], device=q.device)
+    mask = make_mask(pos, pos, causal=causal, window=window)
+    return gqa_attend(q, k, v, mask[None, None])
+
+
+@scoped("attn_core")
+def _kernel_attention(q, k, v, *, causal: bool, window: int):
+    """The ``flash_attention`` kernel (``ops.flash_attention``); it reads the
+    [B,S,H,hd] layout the projections produce, and .contiguous() copies
+    only if a projection returned a strided view."""
+    from repro_torch.kernels import ops as kops
+    return kops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                causal=causal, window=window)
+
+
+@scoped("attn_core")
 def _kv_chunked_attention(q, k, v, *, cfg: ModelConfig, causal: bool):
     """Online-softmax loop over KV blocks of ``attn_q_chunk`` positions; the
     peak score buffer is [B, H, S, C] for one block."""
@@ -177,7 +196,7 @@ def _kv_chunked_attention(q, k, v, *, cfg: ModelConfig, causal: bool):
             "bhqs,bshd->bqhd", p.to(v_blk.dtype), v_blk).float()
         m = m_new
     o = o / torch.clamp(l.transpose(1, 2)[..., None], min=1e-30)
-    return o.to(q.dtype)
+    return o.to(q.dtype).contiguous()
 
 
 def cross_attention(params, x, mem, *, cfg: ModelConfig):
@@ -259,6 +278,7 @@ def _context_parallel(params, x, k_cache, v_cache, cache_len, *, cfg: ModelConfi
     return out, k_cache, v_cache
 
 
+@scoped("attn_core")
 def decode_attend(q, k, v, lens, *, window: int, cfg: ModelConfig):
     """One new token per row against its keys: q [B,1,H,hd], k/v
     [B,S,Hk,hd], positions ``0..lens[b]`` and, with ``window > 0``, also

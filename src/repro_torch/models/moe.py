@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.common import ParamSpec
+from repro_torch.common.scopes import scoped
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ref import _topk_low_index
 from repro_torch.models.layers import einsum, einsum_f32
@@ -43,6 +44,13 @@ def moe_spec(cfg: ModelConfig) -> dict:
         ("w_up",): ParamSpec((e, d, f), ("experts", "embed_in", "mlp_out"), init="scaled"),
         ("w_down",): ParamSpec((e, f, d), ("experts", "mlp", "embed_out"), init="scaled"),
     }
+
+
+def one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n)`` (int64) for ids in [0, n), as a comparison:
+    ``F.one_hot`` checks its ids' range on the host, a device-to-host read
+    per call on the card."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
 
 
 def capacity(cfg: ModelConfig, seq_len: int) -> int:
@@ -69,12 +77,13 @@ def assign_slots(expert_idx: torch.Tensor, *, cfg: ModelConfig):
     dropped [B,S,k])."""
     b, s, k = expert_idx.shape
     cap = capacity(cfg, s)
-    flat = F.one_hot(expert_idx, cfg.num_experts).reshape(b, s * k, cfg.num_experts)
+    flat = one_hot(expert_idx, cfg.num_experts).reshape(b, s * k, cfg.num_experts)
     pos = ((flat.cumsum(dim=1) - 1) * flat).sum(dim=-1).reshape(b, s, k)
     dropped = pos >= cap
     return torch.where(dropped, cap, pos), dropped
 
 
+@scoped("moe_ffn")
 def moe_ffn(params, x: torch.Tensor, *, cfg: ModelConfig):
     """x: [B, S, d] -> ([B, S, d], aux_losses dict).
 
@@ -123,7 +132,7 @@ def dispatch_combine(x, expert_idx, slot, gate_vals, dropped, w_gate, w_up, w_do
 def aux_losses(logits, probs, expert_idx, *, cfg: ModelConfig):
     """(load-balance loss, router-z loss) over these rows, unscaled."""
     e = cfg.num_experts
-    frac_tokens = F.one_hot(expert_idx, e).float().mean(dim=(1, 2))   # [B,E]
+    frac_tokens = one_hot(expert_idx, e).float().mean(dim=(1, 2))     # [B,E]
     mean_probs = probs.mean(dim=1)                                     # [B,E]
     lb_loss = e * (frac_tokens * mean_probs).sum(dim=-1).mean()
     z_loss = torch.logsumexp(logits, dim=-1).square().mean()

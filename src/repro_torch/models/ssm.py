@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.common import ParamSpec
+from repro_torch.common.scopes import scoped
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import einsum
 
@@ -39,6 +40,7 @@ def _heads(t: torch.Tensor, heads: int, axis: int) -> torch.Tensor:
     return t if g == heads else t.repeat_interleave(heads // g, dim=axis)
 
 
+@scoped("ssd_core")
 def ssd_chunked(x, log_a, B, C, *, chunk: int, h0=None, normalize: bool = False):
     """Chunked scalar-decay SSD.
 

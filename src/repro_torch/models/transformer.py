@@ -219,9 +219,11 @@ def _maybe_remat(fn, cfg: ModelConfig, enable: bool):
     """``fn`` rematerialized in the backward pass when ``enable and
     cfg.remat`` and autograd is recording (the reference's ``jax.checkpoint``
     under ``nothing_saveable``): only the block's inputs are kept, and its
-    forward runs again when the gradient reaches it."""
+    forward runs again when the gradient reaches it.  No block draws random
+    numbers, so the replay restores no generator state (saving a stash of
+    the card's generator per block)."""
     if enable and cfg.remat and torch.is_grad_enabled():
-        return functools.partial(checkpoint, fn, use_reentrant=False)
+        return functools.partial(checkpoint, fn, use_reentrant=False, preserve_rng_state=False)
     return fn
 
 

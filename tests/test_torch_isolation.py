@@ -8,7 +8,9 @@ decode step), a lazy ``SemFrame`` pipeline through the plan layer
 ``Subscription`` over a ``CorpusTable`` with one append, an ``Embedder``
 forward, a smoke mixtral forward (MoE), a VLM decode step, two train steps
 over ``packed_batch``, a checkpoint saved and loaded, ``resolve_pspec`` and
-a context-parallel decode step in a one-rank gloo world, on the CPU."""
+a context-parallel decode step in a one-rank gloo world, and a smoke train
+step counted on meta tensors through the launch/ tooling (dry-run cell,
+cost counter, roofline, hlo_debug rows, report table), on the CPU."""
 import os
 import re
 import subprocess
@@ -167,6 +169,23 @@ _GUARDED = textwrap.dedent("""
             assert torch.allclose(got, want, atol=1e-5) and torch.equal(kd.to_local(), wk)
         finally:
             dist.destroy_process_group()
+    import json
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import dryrun, hlo_analysis, hlo_debug, report, roofline
+    cell = ShapeCell("train_64", 64, 2, "train")
+    traced, meta = dryrun.build_cell("llama3.2-3b", cell, None, cfg=tcfg)
+    costs = hlo_analysis.analyze(traced.fn, *traced.args, rows=True, flop_counter=True)
+    rl = roofline.analyse(costs, arch="llama3.2-3b", shape=cell.name, mesh_name="single",
+                          chips=1, model_flops=roofline.model_flops_for_cell(tcfg, cell),
+                          seq_len=cell.seq_len)
+    top, _ = hlo_debug.top_contributors(costs, 3)
+    assert costs.flops == costs.memory["flop_counter_flops"] > 0 and len(top) == 3
+    assert costs.scopes["attn_core"][0] > 0 and rl.bottleneck in ("compute", "memory")
+    with tempfile.TemporaryDirectory() as d:
+        with open(f"{d}/llama3.2-3b__train_64__single.json", "w") as f:
+            json.dump({"arch": "llama3.2-3b", "shape": cell.name, "mesh": "single",
+                       "status": "ok", "roofline": rl.to_json(), **meta}, f)
+        assert "| single | llama3.2-3b | train_64 |" in report.build_table(d)
     assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro") for m in sys.modules)
     print("modules", len(names))
 """)
@@ -178,8 +197,10 @@ def test_port_imports_and_runs_with_jax_and_repro_refused():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-4000:]
     n = int(out.stdout.split("modules")[-1])
-    assert n >= 106         # every module of slices 1, 2a-2c, the plan and serving layers,
-                            # the model families, training and the distribution layer
+    assert n >= 113         # every module of slices 1, 2a-2c, the plan and serving layers,
+                            # the model families, training, the distribution layer and
+                            # the launch/ tooling (dryrun, hlo_analysis, hlo_debug,
+                            # roofline, report, common/scopes)
 
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|repro)(?:[.\s,]|$)", re.M)

@@ -27,12 +27,17 @@ shape) runs against ``F.normalize`` + ``matmul``; ``cluster_scan`` and
 again at ``sem_search``'s shape (one query, padded to one block of 8 by
 edge replication as ``ivf_search`` pads it: probes [1, 64], 8 distinct
 clusters).
-Bounds: the larger of the bytes each input read once and each output
-written once (3.35 TB/s; for the scans, the valid rows and the mask of the
-distinct probed clusters, the queries, the probe ids and the output plane)
-and the fp32 SIMT operations (67 TFLOP/s; for the scans, the valid rows of
-each distinct (query block, cluster) pair against the block's 8 queries: a
-block that probed a cluster from several slots needs its scores once).
+Bounds (every group): the kernel's ``cost()`` at the row's shapes and data,
+computed by the checkout that runs this script (whichever tree a child
+measures), over the card's datasheet peaks (``repro_torch.launch.roofline
+.PEAKS``, by the SKU in the card's name): the larger of the bytes each
+input read once and each output written once (for the scans, the valid
+rows and the mask of the distinct probed clusters, the queries, the probe
+ids and the output plane) over the memory rate, and the operations over
+the fp32 SIMT peak (retrieval, ``rmsnorm``) or the bf16 tensor cores' (the
+attention kernels; for the scans, the valid rows of each distinct (query
+block, cluster) pair against the block's 8 queries: a block that probed a
+cluster from several slots needs its scores once).
 
 Group ``model``: ``decode_attention`` at q [32,1,24,128], k/v
 [32,1024,8,128] with random lens (f32 and bf16, against SDPA with a bool
@@ -53,9 +58,8 @@ the forward against cuDNN SDPA's forward and the backward against one
 inference launches it (no statistics) and as the training path does (with
 the row statistics the backward reads, where the tree's kernel saves them);
 the backward of a tree whose bf16 backward reads no statistics is called
-without them.  Bounds: each input read once and each output written once
-at 3.35 TB/s, and the unmasked products (2 in the forward, 5 in the
-backward) at the bf16 tensor cores' 989 TFLOP/s; errors: the largest
+without them.  Bounds as above: the unmasked products (2 in the forward, 5
+in the backward) at the bf16 tensor cores' peak; errors: the largest
 |kernel - plain| / (1 + |plain|) against the tree's plain versions.  A row
 beyond its limit (forward 2e-2, backward 5e-2, as ``chip_smoke.py`` holds
 them), or a backward that gives other bits on a second call, is marked
@@ -80,9 +84,7 @@ import statistics
 import subprocess
 import sys
 
-PEAK_BW = 3.35e12   # H100 SXM device memory, bytes/s (NVIDIA datasheet)
-PEAK_FP32 = 67e12   # H100 SXM fp32 outside the tensor cores, FLOP/s (datasheet)
-PEAK_BF16 = 989e12  # H100 SXM bf16 tensor cores, dense, FLOP/s (datasheet)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GROUPS = {"retrieval": ("similarity", "ivf_scan", "ivf_scan_q"),
           "model": ("rmsnorm", "decode_attention"),
           "attention": ("flash_attention", "flash_attention_bwd")}
@@ -195,16 +197,14 @@ def retrieval_rows(torch, seed: int) -> dict:
     out["similarity"] = dict(
         ms=device_ms(torch, lambda: ksim.similarity(q, c), 10),
         lib=device_ms(torch, lambda: torch.matmul(norm(q, dim=1), norm(c, dim=1).T), 10),
-        nbytes=4 * dim * (nq + c.shape[0]) + 4 * nq * c.shape[0],
-        flops=2 * nq * c.shape[0] * dim, err=err)
+        cost=("similarity", "cost", [nq, c.shape[0], dim], {}), err=err)
 
     q1 = q[:1]                                              # sem_search's shape
     err = float((ksim.similarity(q1, c) - ref.similarity_ref(q1, c)).abs().max())
     out["similarity, one query"] = dict(
         ms=device_ms(torch, lambda: ksim.similarity(q1, c), 10),
         lib=device_ms(torch, lambda: torch.matmul(norm(q1, dim=1), norm(c, dim=1).T), 10),
-        nbytes=4 * dim * (1 + c.shape[0]) + 4 * c.shape[0], flops=2 * c.shape[0] * dim,
-        err=err)
+        cost=("similarity", "cost", [1, c.shape[0], dim], {}), err=err)
     idx, qp, probes = ivf_store(torch, c, q)
     del c
     store, mask = idx._dev["store"], idx._dev["store_mask"]
@@ -223,16 +223,21 @@ def retrieval_rows(torch, seed: int) -> dict:
         first = torch.ones_like(srt, dtype=torch.bool)
         first[:, 1:] = srt[:, 1:] != srt[:, :-1]
         pairs = srt[first]
-        flops = int(2 * dim * float(sizes[pairs].sum()) * 8)
+        issued = issued_flops(torch, mask, pairs, dim)
         qb = qq.reshape(nb, 8, dim)
-        for name, row_bytes, run, plain, lib in [
-                ("cluster_scan", 4 * dim,
+        # the scans' cost() (computed by the driving checkout): the valid rows
+        # of each distinct (block, cluster) pair against the block's 8
+        # queries; the probed clusters' valid rows and mask rows, the queries,
+        # the probe ids and the plane
+        scan_args = [qq.shape[0], dim, L, pb.tolist(), sizes.tolist()]
+        for name, module, run, plain, lib in [
+                ("cluster_scan", "ivf_scan",
                  lambda: kivf.cluster_scan(qq, store, mask, pb, normalize=False),
                  lambda: ref.ivf_scan_ref(qq, store, mask, pb, normalize=False),
                  lambda: torch.where(mask[pl][:, None] > 0,
                                      torch.einsum("bqd,bsld->bqsl", qb, store[pl]),
                                      MASKED_SCORE)),
-                ("cluster_scan_q", dim + 4,
+                ("cluster_scan_q", "ivf_scan_q",
                  lambda: kivfq.cluster_scan_q(qq, sq, ssc, mask, pb, normalize=False),
                  lambda: ref.ivf_scan_q_ref(qq, sq, ssc, mask, pb, normalize=False),
                  lambda: torch.where(mask[pl][:, None] > 0,
@@ -244,18 +249,14 @@ def retrieval_rows(torch, seed: int) -> dict:
             if not torch.equal(got[masked], want[masked]) or not torch.equal(got, run()):
                 err = float("inf")           # masked lanes differ, or two calls do
             del got, want, masked
-            # the probed clusters' valid rows and mask, the queries, the
-            # probe ids, the plane
-            nbytes = int(sizes[uniq].sum()) * row_bytes + len(uniq) * L * 4 \
-                + qq.numel() * 4 + pb.numel() * 4 + qq.shape[0] * slots * L * 4
             out[name + suffix] = dict(ms=device_ms(torch, run, 5), lib=device_ms(torch, lib, 3),
-                                      nbytes=nbytes, flops=flops, err=err)
+                                      cost=(module, "cost", scan_args, {"block_q": 8}),
+                                      issued=issued, err=err)
             torch.cuda.empty_cache()
-        issued = issued_flops(torch, mask, pairs, dim)
         print(f"retrieval data{suffix}: store [{kc}, {L}, {dim}], valid rows "
               f"{int(sizes.sum())}, probes [{nb}, {slots}], distinct probed {len(uniq)}, "
               f"distinct (block, cluster) pairs {len(pairs)}; the scans issue "
-              f"{issued / 1e9:.2f} GFLOP, {issued / flops:.4f} x the bound's {flops / 1e9:.2f}")
+              f"{issued / 1e9:.2f} GFLOP")
     return out
 
 
@@ -275,9 +276,7 @@ def attention_rows(torch, seed: int) -> dict:
         S, H, HK, HD = 512, 24, 8, 128
         q, k, v, dout = (torch.randn(B, S, h, HD, device="cuda", generator=g).to(torch.bfloat16)
                          for h in (H, HK, HK, H))
-        pairs = S * (S + 1) // 2
-        fwd_bytes = 2 * 2 * (q.numel() + k.numel())          # q, k, v in; out
-        bwd_bytes = 2 * 4 * (q.numel() + k.numel())          # q, k, v, out, dout in; dq, dk, dv
+        shape = [B, S, S, H, HK, HD]
         o = kfa.flash_attention(q, k, v, causal=True)
         plain = ref.flash_attention_ref(q, k, v, causal=True).float()
         err = float(((o.float() - plain).abs() / (1 + plain.abs())).max())
@@ -285,7 +284,7 @@ def attention_rows(torch, seed: int) -> dict:
         lib_fwd = device_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), 10)
         out[f"flash_attention bf16, {label}"] = dict(
             ms=device_ms(torch, lambda: kfa.flash_attention(q, k, v, causal=True), 10),
-            lib=lib_fwd, nbytes=fwd_bytes, flops=4 * B * H * HD * pairs, peak=PEAK_BF16,
+            lib=lib_fwd, cost=("flash_attention", "cost", shape, {}), peak="bf16",
             err=err, tol=2e-2)
         if saves_stats:
             o, st = kfa.flash_attention(q, k, v, causal=True, return_stats=True)
@@ -295,8 +294,8 @@ def attention_rows(torch, seed: int) -> dict:
             fwd_train = lambda: kfa.flash_attention(q, k, v, causal=True)
             bwd = lambda: kfa.flash_attention_bwd(q, k, v, o, dout, causal=True)
         out[f"flash_attention bf16 with statistics, {label}"] = dict(
-            ms=device_ms(torch, fwd_train, 10), lib=lib_fwd, nbytes=fwd_bytes,
-            flops=4 * B * H * HD * pairs, peak=PEAK_BF16, err=err, tol=2e-2)
+            ms=device_ms(torch, fwd_train, 10), lib=lib_fwd,
+            cost=("flash_attention", "cost", shape, {}), peak="bf16", err=err, tol=2e-2)
         got = bwd()
         want = ref.flash_attention_bwd_ref(q, k, v, o, dout, causal=True)
         err = max(float(((a.float() - b.float()).abs() / (1 + b.float().abs())).max())
@@ -310,7 +309,7 @@ def attention_rows(torch, seed: int) -> dict:
             ms=device_ms(torch, bwd, 10),
             lib=device_ms(torch, lambda: torch.autograd.grad(so, (qt, kt, vt), dot,
                                                              retain_graph=True), 10),
-            nbytes=bwd_bytes, flops=10 * B * H * HD * pairs, peak=PEAK_BF16, err=err,
+            cost=("flash_attention", "backward_cost", shape, {}), peak="bf16", err=err,
             tol=5e-2, split=kernel_split(torch, bwd, 10))
         del q, k, v, dout, o, plain, qt, kt, vt, so
         torch.cuda.empty_cache()
@@ -349,15 +348,17 @@ def child(tree: str, seed: int, groups: list[str]) -> None:
         assert err <= 2 * tol, f"decode_attention {dt}: max abs err {err}"
         ms = device_ms(torch, lambda: kda.decode_attention(q, k, v, lens), 20)
         lib = device_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True), 20)
-        rows = int((lens.clamp(max=S - 1) + 1).sum())
         es = q.element_size()
-        nbytes = rows * HK * HD * 2 * es + 2 * q.numel() * es + lens.numel() * 4
-        out[f"decode_attention {str(dt)[6:]}"] = dict(ms=ms, lib=lib, nbytes=nbytes, err=err)
+        out[f"decode_attention {str(dt)[6:]}"] = dict(
+            ms=ms, lib=lib, err=err, peak="bf16",
+            cost=("decode_attention", "cost", [B, S, H, HK, HD, lens.tolist()], {"itemsize": es}))
         if dt == torch.bfloat16:   # every row at S - 1: the whole cache, uniform work
             full = torch.full_like(lens, S - 1)
             out["decode_attention bfloat16, lens S - 1"] = dict(
                 ms=device_ms(torch, lambda: kda.decode_attention(q, k, v, full), 20),
-                lib=lib, nbytes=B * S * HK * HD * 2 * es + 2 * q.numel() * es + B * 4,
+                lib=lib, peak="bf16",
+                cost=("decode_attention", "cost", [B, S, H, HK, HD, full.tolist()],
+                      {"itemsize": es}),
                 err=float((kda.decode_attention(q, k, v, full).float()
                            - ref.decode_attention_ref(q, k, v, full).float()).abs().max()))
     # small batches: several chunks a row (the engine's 8 slots, the paged
@@ -374,12 +375,12 @@ def child(tree: str, seed: int, groups: list[str]) -> None:
         err = float((kda.decode_attention(q, k, v, lens).float()
                      - ref.decode_attention_ref(q, k, v, lens).float()).abs().max())
         assert err <= 4e-2, f"decode_attention B {b} S {s}: max abs err {err}"
-        rows = int((lens + 1).sum())
         out[f"decode_attention bfloat16, B {b} S {s}, lens {'S - 1' if full else 'random'}"] = \
             dict(ms=device_ms(torch, lambda: kda.decode_attention(q, k, v, lens), 20),
                  lib=device_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask,
                                                    enable_gqa=True), 20),
-                 nbytes=rows * HK * HD * 2 * 2 + 2 * q.numel() * 2 + b * 4, err=err)
+                 cost=("decode_attention", "cost", [b, s, H, HK, HD, lens.tolist()], {}),
+                 peak="bf16", err=err)
     x = torch.randn(16384, 3072, device=dev, generator=g).to(torch.bfloat16)
     sc = torch.randn(3072, device=dev, generator=g)
     sc16 = sc.to(torch.bfloat16)
@@ -387,7 +388,8 @@ def child(tree: str, seed: int, groups: list[str]) -> None:
                  - ref.rmsnorm_ref(x, sc, eps=1e-5).float()).abs().max())
     ms = device_ms(torch, lambda: krn.rmsnorm(x, sc, eps=1e-5), 20)
     lib = device_ms(torch, lambda: torch.nn.functional.rms_norm(x, (3072,), sc16, eps=1e-5), 20)
-    out["rmsnorm bfloat16"] = dict(ms=ms, lib=lib, nbytes=2 * x.numel() * 2 + 3072 * 4, err=err)
+    out["rmsnorm bfloat16"] = dict(ms=ms, lib=lib, err=err,
+                                   cost=("rmsnorm", "cost", [x.shape[0], 3072], {}))
     # a copy of x moves the same bytes: the card's reachable rate for them
     out["x.clone() bfloat16"] = dict(ms=device_ms(torch, x.clone, 20), lib=1.0,
                                      nbytes=2 * x.numel() * 2, err=0.0)
@@ -412,6 +414,22 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(f"device: {smi}", flush=True)
+    # the bounds: this checkout's peaks table and kernels' cost(), whichever
+    # tree a child measures
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import importlib
+
+    from repro_torch.launch import roofline
+    name = smi.split(",")[0]
+    peaks = roofline.peaks(name)
+    print(f"peaks of the {roofline.sku(name)} (datasheet): {peaks}", flush=True)
+
+    def count(row: dict) -> tuple[float, float]:
+        """(FLOPs, bytes) of a row: its kernel's cost(), or its bytes alone."""
+        if "cost" not in row:
+            return 0.0, row["nbytes"]
+        module, fn, a, kw = row["cost"]
+        return getattr(importlib.import_module(f"repro_torch.kernels.{module}"), fn)(*a, **kw)
     order = []
     for r in range(args.rounds):
         order += args.trees if r % 2 == 0 else args.trees[::-1]
@@ -424,7 +442,10 @@ def main() -> None:
             sys.exit(f"{spec} failed:\n{res.stdout[-4000:]}\n{res.stderr[-4000:]}")
         *notes, last = res.stdout.strip().splitlines()
         runs[spec].append(json.loads(last))
-        print("\n".join(f"ran {spec}: {line}" for line in (*notes, last)), flush=True)
+        shown = {n: {k: v for k, v in r.items() if k != "cost"}     # the cost's arguments
+                 for n, r in runs[spec][-1].items()}                 # (probe lists) are long
+        print("\n".join(f"ran {spec}: {line}" for line in (*notes, json.dumps(shown))),
+              flush=True)
     wrong = []
     for spec, rs in runs.items():
         for name in rs[0]:
@@ -436,15 +457,18 @@ def main() -> None:
             ms = statistics.median(r[name]["ms"] for r in rs)
             lib = statistics.median(r[name]["lib"] for r in rs)
             ratios = ", ".join(f"{r[name]['ms'] / r[name]['lib']:.3f}" for r in rs)
-            nbytes, flops = rs[0][name]["nbytes"], rs[0][name].get("flops", 0)
-            peak = rs[0][name].get("peak", PEAK_FP32)
-            bound = max(nbytes / PEAK_BW, flops / peak) * 1e3
-            by = "bytes" if nbytes / PEAK_BW >= flops / peak else "operations"
+            flops, nbytes = count(rs[0][name])
+            peak = getattr(peaks, rs[0][name].get("peak", "fp32"))
+            bound, by = roofline.bound(nbytes, flops, hbm_bw=peaks.hbm_bw, peak=peak)
             print(f"{spec} | {name}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s, "
                   f"{flops / ms / 1e9:.1f} TFLOP/s; bound {bound:.4f} ms by {by}, "
                   f"share {bound / ms:.3f}), library {lib:.4f} ms; kernel / library per "
                   f"run {ratios}; max abs err {err:.3g}"
                   + (" DISAGREES with its plain version" if bad else ""))
+            if "issued" in rs[0][name]:
+                issued = rs[0][name]["issued"]
+                print(f"{spec} | {name}: the scan issues {issued / 1e9:.2f} GFLOP, "
+                      f"{issued / flops:.4f} x the bound's {flops / 1e9:.2f}")
             if "split" in rs[0][name]:
                 names = rs[0][name]["split"]
                 print(f"{spec} | {name}, its kernels (median ms): " + ", ".join(
