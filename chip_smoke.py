@@ -279,7 +279,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 backward 28 x 2 a step; loss finite, weights moved; step
                 time, tokens/s and peak memory.  Its 45 GB checkpoint (params,
                 master weights, moments) is not written (the loop's saver
-                records the save instead).  At 4
+                records the save instead).  At 2
                 of 28 layers (reduced): ``compress_grads`` (int8, error
                 feedback), and a run checkpointed at step 2 (restored bit
                 for bit) and resumed to step 3 against the same steps run
@@ -290,12 +290,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 (a) context-parallel decode of llama3.2-3b (28 layers, bf16,
                 vocab cut to 384) under ``activation_rules`` of a (1, 4)
                 mesh, a cache of 16,384 positions (4,096 a rank, as
-                ``DTensor``s), lens 4095, 4096, 9000 and 16,000, 16
+                ``DTensor``s), lens 4095, 4096, 9000 and 16,000, 8
                 ``registry.decode_step``s against the whole cache through
                 ``decode_attention`` on rank 0: log-probs within
                 GEN_BF16_LOGPROB_TOL, f32 at 4 layers within 1e-4, the
                 layer-0 caches rebuilt from the shards bit for bit,
-                ``decode_attention`` 0 launches (the control 28 a step); (b)
+                ``decode_attention`` 0 launches (the control 28 a step);
+                (a') the same over a (2, 1, 2) ("pod", "data", "model")
+                mesh under the "default" rules, which cut the cache stack
+                [28, 4, 4096, 8, 128] over pod (14 layers a pod), data and
+                model, while the attention cuts the batch over (pod, data):
+                4 steps from lens 2045, 2047, 100 and 4000 against the
+                one-process decode on the whole cache on rank 0, the same
+                limits, the first and last layers gathered back bit for bit
+                where nothing was written; (b)
                 one mixtral-8x22b MoE layer expert parallel over (1, 4), two
                 experts a rank, x [4, 512, 6144], against ``moe_ffn``:
                 routes identical, bf16 within MOE_BF16_TOL of the largest
@@ -315,7 +323,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
                 unsummed over "data") beyond the grad-norm limit,
                 ``flash_attention`` 2 x 4 and its backward 4 launches a step
                 on every rank, each rank's share of the param and state
-                bytes and its peak memory in a step; (e) a 2-layer
+                bytes and its peak memory in a step; (d') the same over
+                the (2, 1, 2) pod mesh, the layer stack cut over pod (2
+                layers a pod), the planted fault gathering each layer from
+                the other pod; (e) a 2-layer
                 full-width checkpoint saved from a (4,) mesh and restored
                 on (2, 2) by ``restore_sharded``, each rank's shards bit
                 for bit; (f) ``python -m repro_torch.launch.train
@@ -3716,7 +3727,7 @@ TRAIN = "llama3.2-3b"
 # attention call is q [2,512,24,128], k/v [2,512,8,128]), 3 steps, the default
 # OptimizerConfig (f32 master weights and moments), remat on (the config's).
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 4, 512, 2, 3
-TRAIN_REDUCED_LAYERS = 4   # compress_grads and checkpoint/resume: 4 of 28 layers
+TRAIN_REDUCED_LAYERS = 2   # compress_grads and checkpoint/resume: 2 of 28 layers
 TRAIN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "train_smoke")
 # The backward kernel against its plain version (autograd through the
 # contract), by the largest |got - want| / (1 + |want|): f32 within 1e-4 (five
@@ -4231,7 +4242,7 @@ DIST_ARCH = "llama3.2-3b"
 DIST_VOCAB = 384          # the vocabulary cut of phase 8
 DIST_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "dist_smoke")
 # (a) context-parallel decode: the cache's 16,384 positions, 4,096 a rank
-CP_BATCH, CP_SEQ, CP_STEPS = 4, 16384, 16
+CP_BATCH, CP_SEQ, CP_STEPS = 4, 16384, 8
 CP_LENS = (4095, 4096, 9000, 16000)    # on and across the shard edges
 CP_F32_LAYERS = 4
 CP_F32_TOL = 1e-4
@@ -4251,44 +4262,54 @@ PP_BF16_GRAD_TOL = 2e-2
 TS_LAYERS, TS_STEPS, TS_BATCH = 4, 2, (4, 512)
 TS_LOSS_TOL, TS_PARAM_TOL, TS_GNORM_TOL = 1e-3, 5e-3, 1e-4   # the last relative
 RS_LAYERS = 2
+# (a') and (d'): the (2, 1, 2) ("pod", "data", "model") mesh, whose "default"
+# rules cut every layer stack over pod.  (a') the decode cache [L, 4, 4096,
+# 8, 128] over pod, data (1) and model: 2,048 positions a rank, lens on and
+# across the sequence shards' edge
+POD_MESH = ((2, 1, 2), ("pod", "data", "model"))
+CP_POD_SEQ, CP_POD_STEPS = 4096, 4
+CP_POD_LENS = (2045, 2047, 100, 4000)
 
 
 def dist_gen(seed: int) -> torch.Generator:
     return torch.Generator(device=DIST_DEVICE).manual_seed(seed)
 
 
-def cp_cache(cfg, sh, seed: int, local: bool) -> dict:
+def cp_cache(cfg, sh, seed: int, local: bool, seq: int = CP_SEQ) -> dict:
     """The decode cache's K and V, drawn layer by layer on the card from the
-    seed: each rank's shard as ``DTensor``s (``local``) or the whole."""
-    shape = (cfg.num_layers, CP_BATCH, CP_SEQ, cfg.num_kv_heads, cfg.hd)
-    rows = sh.local_slices(shape)[1:]
+    seed: each rank's shard as ``DTensor``s (``local``; the layers of its
+    layer shard where the spec cuts the stack's layers) or the whole."""
+    shape = (cfg.num_layers, CP_BATCH, seq, cfg.num_kv_heads, cfg.hd)
+    mine = sh.local_slices(shape)
+    layers = range(cfg.num_layers)[mine[0]] if local else range(cfg.num_layers)
     out = {}
     for j, name in enumerate(("k", "v")):
         t = torch.empty(sh.shard_shape(shape) if local else shape, dtype=cfg.activation_dtype,
                         device=DIST_DEVICE)
-        for layer in range(cfg.num_layers):
+        for slot, layer in enumerate(layers):
             full = torch.randn(shape[1:], generator=dist_gen(seed * 1000 + 2 * layer + j),
                                device=DIST_DEVICE, dtype=cfg.activation_dtype)
-            t[layer] = full[rows] if local else full
+            t[slot] = full[mine[1:]] if local else full
         out[name] = sh.dtensor(t, shape) if local else t
     return {"self": out}
 
 
 @torch.no_grad()
-def cp_steps(cfg, params, cache, seed: int) -> tuple[torch.Tensor, float]:
-    """CP_STEPS ``registry.decode_step``s from CP_LENS: (log-probs [B, steps,
-    V] f32, wall s a step)."""
-    toks = torch.randint(0, cfg.vocab_size, (CP_STEPS, CP_BATCH, 1),
-                         generator=dist_gen(seed + 7), device=DIST_DEVICE)
-    lens = torch.tensor(CP_LENS, dtype=torch.int32, device=DIST_DEVICE)
+def cp_steps(cfg, params, cache, seed: int, rows=slice(None), lens=CP_LENS,
+             steps: int = CP_STEPS) -> tuple[torch.Tensor, float]:
+    """``steps`` ``registry.decode_step``s from ``lens`` of the batch
+    ``rows``: (log-probs [b, steps, V] f32, wall s a step)."""
+    toks = torch.randint(0, cfg.vocab_size, (steps, CP_BATCH, 1),
+                         generator=dist_gen(seed + 7), device=DIST_DEVICE)[:, rows]
+    lens = torch.tensor(lens, dtype=torch.int32, device=DIST_DEVICE)[rows]
     out = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for i in range(CP_STEPS):
+    for i in range(steps):
         logits, cache = registry.decode_step(cfg, params, toks[i], cache, lens + i)
         out.append(torch.log_softmax(logits.float(), dim=-1))
     torch.cuda.synchronize()
-    return torch.cat(out, dim=1), (time.perf_counter() - t0) / CP_STEPS
+    return torch.cat(out, dim=1), (time.perf_counter() - t0) / steps
 
 
 def cp_rank(params, rank: int, seed: int) -> dict:
@@ -4331,6 +4352,76 @@ def cp_rank(params, rank: int, seed: int) -> dict:
                      and same_bits(v0, whole["self"]["v"][0]))
             del whole
         res[dt] = r
+        free_card()
+        tdist.barrier()
+    return res
+
+
+def cp_pod_rank(params, rank: int, seed: int) -> dict:
+    """(a') context-parallel decode of llama3.2-3b over the (2, 1, 2) pod
+    mesh under the "default" rules: the cache stacks cut over pod (half the
+    layers a pod), data and model (the sequence), while the attention's
+    layer spec cuts the batch over (pod, data), so each layer's rows move
+    from the owner pod and each new token back.  Rank 0 runs the same steps
+    in one process on the whole cache as the control; after the steps each
+    stack's first and last layer (one on each pod) are gathered back and
+    held to the control's: bit for bit where nothing was written."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_test_mesh
+    mesh = make_test_mesh(*POD_MESH)
+    base = get_config(DIST_ARCH).with_(vocab_size=DIST_VOCAB, decode_cp=True)
+    res = {}
+    for dt, cfg, p in (("bf16", base, params),
+                       ("f32", base.with_(num_layers=CP_F32_LAYERS, dtype="float32"),
+                        cut_depth(params, {"layers": CP_F32_LAYERS}))):
+        shape = (cfg.num_layers, CP_BATCH, CP_POD_SEQ, cfg.num_kv_heads, cfg.hd)
+        spec = shd.resolve_pspec(shape, ("layers", "batch", "kv_seq", "kv_heads", "qkv"), mesh,
+                                 "default")
+        sh = shd.NamedSharding(mesh, spec)
+        rows_sh = shd.NamedSharding(mesh, shd.resolve_pspec((CP_BATCH, 1), ("batch", None),
+                                                            mesh, "default"))
+        rows = rows_sh.local_slices((CP_BATCH, 1))[0]
+        cache = cp_cache(cfg, sh, seed, local=True, seq=CP_POD_SEQ)
+        zero_launches()
+        with shd.activation_rules(mesh, "default"):
+            got, step_s = cp_steps(cfg, p, cache, seed, rows, CP_POD_LENS, CP_POD_STEPS)
+        launches = kernel_launches()
+        got = shd.NamedSharding(mesh, shd.P(rows_sh.spec[0], None, None)).gather(got)
+        layer_sh = shd.NamedSharding(mesh, shd.P(*spec[1:]))
+        per = cfg.num_layers // shd.mesh_sizes(mesh)["pod"]
+        ends = {}
+        for layer in (0, cfg.num_layers - 1):
+            at = {"pod": layer // per}
+            ends[layer] = [layer_sh.gather(cache["self"][n].to_local()[layer % per], at=at)
+                           for n in ("k", "v")]
+        k = cache["self"]["k"].to_local()
+        r = {"spec": str(spec), "attention_rows": [rows.start, rows.stop],
+             "local_stack_shape": list(k.shape),
+             "local_cache_gib": 2 * k.numel() * k.element_size() / 2**30,
+             "step_ms": step_s * 1e3, "decode_attention": launches["decode_attention"],
+             "flash_attention": launches["flash_attention"]}
+        del cache, k
+        if rank == 0:
+            whole = cp_cache(cfg, sh, seed, local=False, seq=CP_POD_SEQ)
+            zero_launches()
+            want, wstep = cp_steps(cfg, p, whole, seed, lens=CP_POD_LENS, steps=CP_POD_STEPS)
+            written = torch.zeros(CP_BATCH, CP_POD_SEQ, dtype=torch.bool, device=DIST_DEVICE)
+            for i in range(CP_POD_STEPS):
+                written[torch.arange(CP_BATCH, device=DIST_DEVICE),
+                        torch.tensor(CP_POD_LENS, device=DIST_DEVICE) + i] = True
+            same, werr = True, 0.0
+            for layer, kv in ends.items():
+                for t, n in zip(kv, ("k", "v")):
+                    w = whole["self"][n][layer]
+                    same = same and same_bits(t[~written], w[~written])
+                    werr = max(werr, float((t[written].float() - w[written].float()).abs().max()))
+            r.update(control_step_ms=wstep * 1e3,
+                     control_decode_attention=kernel_launches()["decode_attention"],
+                     logprob_err=float((got - want).abs().max()),
+                     unwritten_bits_equal=same, written_err=werr)
+            del whole
+        res[dt] = r
+        del ends
         free_card()
         tdist.barrier()
     return res
@@ -4562,7 +4653,7 @@ def nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in flatten(tree).values())
 
 
-def train_step_rank(rank: int, seed: int) -> dict:
+def train_step_rank(rank: int, seed: int, pod: bool = False) -> dict:
     """(d) the sharded train step over (2, 2) ("data", "model") at
     llama3.2-3b's widths, 4 layers: each rank stores a quarter or so of the
     params and state; rank 0 runs the single-device step as the control of
@@ -4572,11 +4663,19 @@ def train_step_rank(rank: int, seed: int) -> dict:
     norm.  In f32 a planted fault follows: one step from the same start
     with each gradient left unsummed over "data" (the trainstep's
     ``_grad_shard`` swapped here), whose grad norm must land beyond
-    TS_GNORM_TOL."""
+    TS_GNORM_TOL.  (d') with ``pod``: the same over the (2, 1, 2) pod mesh,
+    where the rules cut the layer stack over pod (two layers a pod), and
+    the planted fault gathers each layer from the other pod (the trainstep's
+    ``_owner`` swapped)."""
     from repro_torch.dist import sharding as shd
     from repro_torch.dist import trainstep as dts
     from repro_torch.launch.mesh import make_test_mesh
-    mesh = make_test_mesh((2, 2), ("data", "model"))
+    if pod:
+        mesh = make_test_mesh(*POD_MESH)
+        fault = ("wrong_pod", "_owner", lambda i, per: (i // per + 1) % POD_MESH[0][0])
+    else:
+        mesh = make_test_mesh((2, 2), ("data", "model"))
+        fault = ("unsummed", "_grad_shard", lambda g, mesh, dp, slices: g.float()[slices])
     base = get_config(DIST_ARCH).with_(vocab_size=DIST_VOCAB, num_layers=TS_LAYERS)
     ocfg = opt.OptimizerConfig(total_steps=TS_STEPS, warmup_steps=0)
     res = {}
@@ -4593,8 +4692,9 @@ def train_step_rank(rank: int, seed: int) -> dict:
             step = dts.make_sharded_train_step(cfg, ocfg, mesh)
             r.update(grad_norms=[], same_params_grad_norms=[], step_s=[], losses=[],
                      launches=[0, 0])
-            for batch in ts_batches(cfg, seed)[:n_steps]:
-                start = shd.gather_tree(lp, psh)
+            for i, batch in enumerate(ts_batches(cfg, seed)[:n_steps]):
+                # the first step starts from ``params`` themselves, bit for bit
+                start = shd.gather_tree(lp, psh) if i else params
                 if rank == 0:
                     g = trainstep.grads_and_loss(cfg, start, batch["tokens"],
                                                  batch["labels"].long())[2]
@@ -4629,13 +4729,14 @@ def train_step_rank(rank: int, seed: int) -> dict:
         got = shd.gather_tree(lp, psh)
         del lp, ls
         if dt == "float32":
-            real = dts._grad_shard
-            dts._grad_shard = lambda g, mesh, dp, slices: g.float()[slices]
+            key, attr, planted = fault
+            real = getattr(dts, attr)
+            setattr(dts, attr, planted)
             try:
-                r["unsummed"] = {}
-                run(1, r["unsummed"])
+                r[key] = {}
+                run(1, r[key])
             finally:
-                dts._grad_shard = real
+                setattr(dts, attr, real)
         if rank == 0:
             ref_step = trainstep.make_train_step(cfg, ocfg)
             wl = []
@@ -4706,11 +4807,15 @@ def dist_rank(rank: int, seed: int) -> None:
                                       dist_gen(seed))
         res = {"a": cp_rank(params, rank, seed)}
         laps["a"] = time.perf_counter() - t0
+        res["a_pod"] = cp_pod_rank(params, rank, seed)
+        laps["a_pod"] = time.perf_counter() - t0 - sum(laps.values())
         res["c"] = pp_rank(params, rank, seed)
         laps["c"] = time.perf_counter() - t0 - sum(laps.values())
         del params
         free_card()
-        for key, fn in (("b", moe_rank), ("d", train_step_rank), ("e", restore_rank)):
+        for key, fn in (("b", moe_rank), ("d", train_step_rank),
+                        ("d_pod", functools.partial(train_step_rank, pod=True)),
+                        ("e", restore_rank)):
             res[key] = fn(rank, seed)
             free_card()
             laps[key] = time.perf_counter() - t0 - sum(laps.values())
@@ -4824,6 +4929,35 @@ def dist_phase(args, smi: str) -> dict:
                                                cfg.num_kv_heads, cfg.hd], ra
             assert ra["decode_attention"] == 0 and ra["flash_attention"] == 0, ra
         assert a["control_decode_attention"] == layers * CP_STEPS, a
+    # (a')
+    for dt, tol in (("bf16", GEN_BF16_LOGPROB_TOL), ("f32", CP_F32_TOL)):
+        a = r0["a_pod"][dt]
+        layers = cfg.num_layers if dt == "bf16" else CP_F32_LAYERS
+        log(f"(a') {DIST_ARCH} context-parallel decode over {POD_MESH[0]} {POD_MESH[1]} under "
+            f"the default rules on {smi}, {dt}, {layers} layers (vocab cut to {DIST_VOCAB}), "
+            f"batch {CP_BATCH}, cache {CP_POD_SEQ} positions, lens {CP_POD_LENS}, "
+            f"{CP_POD_STEPS} steps: stack spec {a['spec']}, each rank's stack shard "
+            f"{[r['a_pod'][dt]['local_stack_shape'] for r in ranks]} "
+            f"({a['local_cache_gib']:.3f} GiB of K+V), attention rows "
+            f"{[r['a_pod'][dt]['attention_rows'] for r in ranks]}; log-probs against the "
+            f"one-process control on the whole cache {a['logprob_err']:.4g} (limit {tol}); the "
+            f"first and last layers gathered back: unwritten positions bit for bit "
+            f"{a['unwritten_bits_equal']}, written {a['written_err']:.4g} from the control's; "
+            f"a step {[round(r['a_pod'][dt]['step_ms'], 2) for r in ranks]} ms (control "
+            f"{a['control_step_ms']:.2f} ms); decode_attention launches "
+            f"{[r['a_pod'][dt]['decode_attention'] for r in ranks]} (control "
+            f"{a['control_decode_attention']})")
+        assert a["logprob_err"] <= tol, a
+        assert a["unwritten_bits_equal"] and math.isfinite(a["written_err"]), a
+        per = layers // POD_MESH[0][0]
+        for i, r in enumerate(ranks):
+            ra = r["a_pod"][dt]
+            assert ra["local_stack_shape"] == [per, CP_BATCH, CP_POD_SEQ // 2, cfg.num_kv_heads,
+                                               cfg.hd], ra
+            assert ra["attention_rows"] == [CP_BATCH // 2 * (i // 2),
+                                            CP_BATCH // 2 * (i // 2 + 1)], ra
+            assert ra["decode_attention"] == 0 and ra["flash_attention"] == 0, ra
+        assert a["control_decode_attention"] == layers * CP_POD_STEPS, a
     # (b)
     b = r0["b"]
     log(f"(b) {MOE_ARCH} one MoE layer (d 6144, ff 16384, 8 experts, top-2) at x "
@@ -4866,34 +5000,42 @@ def dist_phase(args, smi: str) -> dict:
     assert gf["grad_rel_err"] <= PP_GRAD_TOL, c
     assert gb["pp_vs_f32"] <= PP_BF16_GRAD_TOL < gb["wrong_stage_vs_f32"], gb
     assert all(r["c"]["flash_attention"] == per * PP_MICRO for r in ranks), ranks
-    # (d)
-    log(f"cut: (d) {DIST_ARCH} at {TS_LAYERS} of {cfg.num_layers} layers, vocab {DIST_VOCAB}")
+    # (d), (d')
+    log(f"cut: (d) and (d') {DIST_ARCH} at {TS_LAYERS} of {cfg.num_layers} layers, vocab "
+        f"{DIST_VOCAB}")
     base = cfg.with_(num_layers=TS_LAYERS)
-    for dt in ("float32", "bfloat16"):
-        d = r0["d"][dt]
-        log(f"(d) sharded train step over (2, 2) (\"data\", \"model\") on {smi}, {dt} "
-            f"activations, {TS_STEPS} steps of {list(TS_BATCH)}: losses {d['losses']} against "
-            f"the single-process step's {d['control_losses']} (err {d['loss_err']:.3g}), params "
-            f"{d['param_err']:.3g} from it; shares of the param bytes a rank holds "
-            f"{[round(r['d'][dt]['local_param_share'], 4) for r in ranks]}, of the state bytes "
-            f"{[round(r['d'][dt]['local_state_share'], 4) for r in ranks]}; grad norms "
-            f"{d['grad_norms']} against the single-device gradient's of the same params "
-            f"{d['same_params_grad_norms']} (relative err {d['grad_norm_rel_err']:.3g}"
-            + (f", limit {TS_GNORM_TOL}; the planted fault, gradients unsummed over \"data\", "
-               f"{d['unsummed']['grad_norms'][0]} against "
-               f"{d['unsummed']['same_params_grad_norms'][0]}: "
-               f"{d['unsummed']['grad_norm_rel_err']:.3g}" if dt == "float32" else "")
-            + f"); per-rank peak memory of a step above its start "
-            f"{[round(r['d'][dt]['step_peak_gib'], 3) for r in ranks]} GiB; launches "
-            f"[flash_attention, flash_attention_bwd] per rank "
-            f"{[r['d'][dt]['launches'] for r in ranks]}; step wall "
-            f"{[round(s, 3) for s in d['step_s']]} s")
-        want = [TS_STEPS * (1 + base.remat) * TS_LAYERS, TS_STEPS * TS_LAYERS]
-        assert all(r["d"][dt]["launches"] == want for r in ranks), (dt, want, ranks)
-    d32 = r0["d"]["float32"]
-    assert d32["loss_err"] <= TS_LOSS_TOL and d32["param_err"] <= TS_PARAM_TOL, d32
-    assert d32["grad_norm_rel_err"] <= TS_GNORM_TOL < d32["unsummed"]["grad_norm_rel_err"], d32
-    assert all(0.2 <= r["d"]["float32"]["local_param_share"] <= 0.3 for r in ranks), ranks
+    meshes = {"d": ("(d)", "(2, 2) (\"data\", \"model\")", "unsummed",
+                    "gradients unsummed over \"data\""),
+              "d_pod": ("(d')", f"{POD_MESH[0]} {POD_MESH[1]}, the layer stack over pod",
+                        "wrong_pod", "each layer gathered from the other pod")}
+    for key, (tag, where, fault, what) in meshes.items():
+        for dt in ("float32", "bfloat16"):
+            d = r0[key][dt]
+            log(f"{tag} sharded train step over {where} on {smi}, {dt} "
+                f"activations, {TS_STEPS} steps of {list(TS_BATCH)}: losses {d['losses']} "
+                f"against the single-process step's {d['control_losses']} (err "
+                f"{d['loss_err']:.3g}), params {d['param_err']:.3g} from it; shares of the "
+                f"param bytes a rank holds "
+                f"{[round(r[key][dt]['local_param_share'], 4) for r in ranks]}, of the state "
+                f"bytes {[round(r[key][dt]['local_state_share'], 4) for r in ranks]}; grad norms "
+                f"{d['grad_norms']} against the single-device gradient's of the same params "
+                f"{d['same_params_grad_norms']} (relative err {d['grad_norm_rel_err']:.3g}"
+                + (f", limit {TS_GNORM_TOL}; the planted fault, {what}, "
+                   f"{d[fault]['grad_norms'][0]} against "
+                   f"{d[fault]['same_params_grad_norms'][0]}: "
+                   f"{d[fault]['grad_norm_rel_err']:.3g}" if dt == "float32" else "")
+                + f"); per-rank peak memory of a step above its start "
+                f"{[round(r[key][dt]['step_peak_gib'], 3) for r in ranks]} GiB; launches "
+                f"[flash_attention, flash_attention_bwd] per rank "
+                f"{[r[key][dt]['launches'] for r in ranks]}; step wall "
+                f"{[round(s, 3) for s in d['step_s']]} s")
+            want = [TS_STEPS * (1 + base.remat) * TS_LAYERS, TS_STEPS * TS_LAYERS]
+            assert all(r[key][dt]["launches"] == want for r in ranks), (key, dt, want, ranks)
+        d32 = r0[key]["float32"]
+        assert d32["loss_err"] <= TS_LOSS_TOL and d32["param_err"] <= TS_PARAM_TOL, (key, d32)
+        assert d32["grad_norm_rel_err"] <= TS_GNORM_TOL < d32[fault]["grad_norm_rel_err"], \
+            (key, d32)
+        assert all(0.2 <= r[key]["float32"]["local_param_share"] <= 0.3 for r in ranks), ranks
     # (e)
     e = [r["e"] for r in ranks]
     log(f"(e) restore_sharded on {smi}: a {RS_LAYERS}-layer full-width {DIST_ARCH} checkpoint "

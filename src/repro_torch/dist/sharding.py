@@ -24,8 +24,9 @@ JAX: ``P(None, ("data", "model"))`` splits along ``data`` first.
 the shards back into the whole, and gives the matching ``DTensor``
 placements.  Each ``pmax``/``psum``/``pmean`` of the reference becomes an
 ``all_reduce`` over the process group of its mesh axes (:func:`axis_group`,
-one group per mesh and axis tuple, built once).  The library calls only
-``all_reduce`` (SUM, MAX) and ``broadcast``, the collectives that gloo
+one group per mesh and axis tuple, built once; :func:`source_groups` for
+the groups of a source rank and the ranks that read from it).  The library
+calls only ``all_reduce`` (SUM, MAX) and ``broadcast``, the collectives that gloo
 carries for CUDA tensors as well as NCCL does; it never picks a backend,
 and a collective that the backend refuses raises.
 
@@ -174,6 +175,15 @@ def shard_index(mesh, axes) -> int:
     return idx
 
 
+def shard_coordinate(mesh, axes, idx: int) -> dict[str, int]:
+    """The coordinates on ``axes`` (major to minor) of shard ``idx`` among
+    those the axes cut: the inverse of :func:`shard_index`."""
+    sizes, out = mesh_sizes(mesh), {}
+    for a in reversed(entry_axes(axes)):
+        idx, out[a] = divmod(idx, sizes[a])
+    return out
+
+
 _GROUPS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
@@ -213,6 +223,26 @@ def neighbour_groups(mesh, axis: str) -> list:
             groups = [dist.new_group([row[s], row[s + 1]]) for s in range(len(row) - 1)]
             if dist.get_rank() in row:
                 cache[key] = groups
+    return cache[key]
+
+
+def source_groups(mesh, key, src_of: Mapping[int, int]) -> dict[int, object]:
+    """One process group per source rank, of the source and the ranks that
+    read from it: ``src_of`` maps every rank of the mesh to its source.
+    Built once per mesh and ``key``, every group in source order on every
+    rank (``new_group`` is collective).  Returns {source: group} of the
+    groups this rank is in."""
+    cache = _GROUPS.setdefault(mesh, {})
+    if key not in cache:
+        members: dict[int, set[int]] = {}
+        for r, s in src_of.items():
+            members.setdefault(s, {s}).add(r)
+        mine = {}
+        for s in sorted(members):
+            group = dist.new_group(sorted(members[s]))
+            if dist.get_rank() in members[s]:
+                mine[s] = group
+        cache[key] = mine
     return cache[key]
 
 
@@ -301,12 +331,19 @@ class NamedSharding:
         t = torch.as_tensor(t)
         return t[self.local_slices(t.shape)].to(device or current_device(), copy=True)
 
-    def gather(self, local: torch.Tensor) -> torch.Tensor:
+    def gather(self, local: torch.Tensor, at: Mapping[str, int] | None = None) -> torch.Tensor:
         """The whole tensor on every rank of the mesh, from each rank's shard
         ``local``: each distinct shard is broadcast by its first owner, so the
-        bits are the owner's.  A replicated spec returns ``local`` itself."""
+        bits are the owner's.  ``at`` fixes the sources' coordinates on mesh
+        axes the spec does not cut (default 0): ``{"pod": q}`` gathers the
+        shards that pod q's ranks hold, and only their ``local`` is read (the
+        other ranks' gives the shard's shape).  A replicated spec with no
+        ``at`` returns ``local`` itself."""
         sharded = {a for e in self.spec for a in entry_axes(e)}
-        if not sharded:
+        at = dict(at or {})
+        if sharded & set(at):
+            raise ValueError(f"{self.spec} cuts {sorted(sharded & set(at))}: no source to fix")
+        if not sharded and not at:
             return local          # replicated: every rank holds the whole
         counts = self._counts()
         shape = tuple(n * c for n, c in zip(local.shape, counts))
@@ -316,8 +353,8 @@ class NamedSharding:
         ranks = self.mesh.mesh
         for pos in itertools.product(*(range(n) for n in ranks.shape)):
             coord = dict(zip(names, pos))
-            if any(coord[a] for a in names if a not in sharded):
-                continue          # a replica: the first owner sends this shard
+            if any(coord[a] != at.get(a, 0) for a in names if a not in sharded):
+                continue          # a replica: the first owner (or ``at``'s) sends this shard
             src = int(ranks[tuple(pos)])
             buf = local.contiguous() if src == dist.get_rank() else local.new_empty(local.shape)
             dist.broadcast(buf, src=src, group=group)

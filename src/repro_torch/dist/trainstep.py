@@ -11,6 +11,12 @@ in_shardings=spec_shardings(...), out_shardings=...)`` under
   * each layer's weights are gathered from the shards when the model
     indexes the layer (ZeRO-3), the embedding, final norm and head at the
     start of the step;
+  * a stack whose ``layers`` dimension the rules cut (over ``pod`` on a
+    multi-pod mesh) is a placement, as under ``jax.jit``: layer i of L lives
+    on layer shard q = i // (L / n) (n shards), at local index i - q L / n,
+    and is gathered from shard q's ranks alone (``NamedSharding.gather``
+    with the source's ``pod`` fixed); the step is still the single-device
+    step's, not a pipeline;
   * the global batch is split over the ``batch`` rule's axes; ranks that
     share a batch slice (those that differ only on the other axes) compute
     it redundantly;
@@ -18,16 +24,14 @@ in_shardings=spec_shardings(...), out_shardings=...)`` under
     SUM over the batch axes), so the gradients summed over the batch axes
     are the single-device step's;
   * as soon as autograd has a gathered leaf's whole gradient, a hook sums
-    it in f32 over the batch axes (one ``all_reduce``), keeps this rank's
-    slice in an f32 shard and frees the whole: the whole gradients alive at
-    once are those of the leaves whose backward is under way (about a
-    layer's), not the model's;
+    it in f32 over the batch axes (one ``all_reduce`` on every rank), keeps
+    this rank's slice in an f32 shard (a layer's only on its owner's ranks)
+    and frees the whole: the whole gradients alive at once are those of the
+    leaves whose backward is under way (about a layer's), not the model's;
   * the clipping norm is the whole gradient's, summed from each rank's
     shard; AdamW (``optimizer.apply_updates``) runs on each rank's shard.
 
-The single-device step (``train/trainstep.py``) is unchanged.  A mesh whose
-rules shard the stacked ``layers`` dimension (over ``pod``: the pipeline's
-placement) is refused.
+The single-device step (``train/trainstep.py``) is unchanged.
 """
 from __future__ import annotations
 
@@ -46,15 +50,28 @@ from repro_torch.train import optimizer as opt
 class _AtUse:
     """A stacked leaf whose layer i is gathered from the ranks' shards when
     the model indexes it; each gathered layer is a leaf of the backward
-    whose gradient ``keep`` takes as soon as autograd has summed it."""
+    whose gradient ``keep`` takes as soon as autograd has summed it.
+    ``lead`` holds the mesh axes that cut the stack's layer dimension (none:
+    every rank holds every layer's shard)."""
 
-    def __init__(self, path, local: torch.Tensor, row: shd.NamedSharding, keep):
+    def __init__(self, path, local: torch.Tensor, row: shd.NamedSharding, lead, keep):
         self.path, self.local, self.row, self.keep = path, local, row, keep
+        self.lead = shd.entry_axes(lead)
+        self.per = local.shape[0]      # layers a layer shard holds
 
     def __getitem__(self, i: int) -> torch.Tensor:
-        full = self.row.gather(self.local[i]).detach().requires_grad_()
-        full.register_post_accumulate_grad_hook(self.keep(self.path, i, self.row))
+        at = shd.shard_coordinate(self.row.mesh, self.lead, _owner(i, self.per))
+        # the owner's ranks send their slot i % per; the others' gives the shape
+        full = self.row.gather(self.local[i % self.per], at=at).detach().requires_grad_()
+        full.register_post_accumulate_grad_hook(self.keep(self.path, i, self.row, self.lead,
+                                                          self.per))
         return full
+
+
+def _owner(i: int, per: int) -> int:
+    """The layer shard that holds layer i of a stack cut into shards of
+    ``per`` layers."""
+    return i // per
 
 
 def _grad_shard(g: torch.Tensor, mesh, dp, slices) -> torch.Tensor:
@@ -82,13 +99,11 @@ def make_sharded_train_step(cfg: ModelConfig, opt_cfg: opt.OptimizerConfig, mesh
     this rank's shards (updated in place), ``batch`` the global
     {"tokens", "labels"} [B, S] on every rank, with the model's other
     inputs (``image_embeds``, ``audio_frames``) when it takes them; metrics as the single-device
-    step's at one microbatch."""
+    step's at one microbatch.  A stack the rules cut over its layers holds
+    each rank's layer shard (``params[stack]`` leaves [L / n, ...])."""
     pspecs = registry.param_specs(cfg)
     psh = flatten(shd.spec_shardings(pspecs, mesh))
     stacked = {p for p, s in pspecs.items() if s.axes[:1] == ("layers",)}
-    if any(psh[p].spec[0] is not None for p in stacked):
-        raise NotImplementedError("the sharded train step keeps the layer stack whole on "
-                                  "every rank; a mesh with 'pod' shards it (pipeline)")
 
     def train_step(params, opt_state, batch):
         tokens, labels = batch["tokens"], batch["labels"].long()
@@ -100,18 +115,26 @@ def make_sharded_train_step(cfg: ModelConfig, opt_cfg: opt.OptimizerConfig, mesh
         gl = {p: torch.zeros(t.shape, dtype=torch.float32, device=t.device)
               for p, t in local.items()}
 
-        def keep(path, i, sh):
-            out = gl[path] if i is None else gl[path][i]
+        def keep(path, i, sh, lead=(), per=1):
+            if i is None:
+                out = gl[path]
+            elif shd.shard_index(mesh, lead) == _owner(i, per):
+                out = gl[path][i % per]
+            else:
+                out = None        # another layer shard's: summed here, kept there
 
             def hook(full):
-                out.add_(_grad_shard(full.grad, mesh, dp, sh.local_slices(full.shape)))
+                g = _grad_shard(full.grad, mesh, dp, sh.local_slices(full.shape))
+                if out is not None:
+                    out.add_(g)
                 full.grad = None
             return hook
 
         tree = {}
         for p, t in local.items():
             if p in stacked:
-                tree[p] = _AtUse(p, t, shd.NamedSharding(mesh, shd.P(*psh[p].spec[1:])), keep)
+                spec = psh[p].spec
+                tree[p] = _AtUse(p, t, shd.NamedSharding(mesh, shd.P(*spec[1:])), spec[0], keep)
             else:
                 tree[p] = psh[p].gather(t).detach().requires_grad_()
                 tree[p].register_post_accumulate_grad_hook(keep(p, None, psh[p]))

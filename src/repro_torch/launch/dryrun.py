@@ -34,7 +34,10 @@ What each cell runs, per rank:
     (the port's serving path holds whole weights per card).
   * decode: ``registry.decode_step`` with ``decode_cp=True``: under a mesh
     with a ``model`` axis the caches are ``DTensor``s sharded over batch
-    and ``kv_seq`` (context-parallel decode); x holds this rank's rows.
+    and ``kv_seq`` (context-parallel decode), and over their layers where
+    the rules cut them (llama4's ``"default"`` serving rules on the multi
+    mesh: ``layers -> pod``); x holds this rank's rows of the attention's
+    batch spec.
 """
 from __future__ import annotations
 
@@ -274,8 +277,9 @@ def _batch_rows(cell: ShapeCell, mesh, rules) -> slice | None:
 
 def _cache(cspecs, mesh, rules, rows: slice | None, device) -> dict:
     """The decode cache: whole on one device.  Under a mesh with a ``model``
-    axis the self-attention K/V (the entries over ``kv_seq``) are this
-    rank's shards as ``DTensor``s (context-parallel decode); every other
+    axis the self-attention K/V stacks (the entries over ``kv_seq``) are
+    this rank's shards as ``DTensor``s, cut over layers, batch and sequence
+    as the rules resolve the stack (context-parallel decode); every other
     entry (cross-attention memories, recurrent states) holds this rank's
     batch ``rows``."""
     if mesh is None:

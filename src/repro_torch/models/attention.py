@@ -10,7 +10,9 @@ activations on the CPU it keeps the reference's rule: ``"chunked"`` past
 KV cache (:func:`decode_self_attention`) follows the same rule with the
 ``decode_attention`` kernel; a ``decode_cp`` config under activation rules
 whose mesh has a ``model`` axis takes the context-parallel path
-(``dist/context_parallel.py``) instead.  Cross attention (the VLM's image
+(``dist/context_parallel.py``) instead.  Decode loops take each layer's
+cache through :func:`cache_layer`, which hands that path a layer of a stack
+the rules cut over its layers.  Cross attention (the VLM's image
 blocks, whisper's decoder) is the reference's plain ``gqa_attend`` in both
 forms, as no Pallas kernel computes it there.
 """
@@ -214,6 +216,18 @@ def cross_attention(params, x, mem, *, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
+def cache_layer(stack, i: int):
+    """Layer ``i`` of a [L, ...] cache stack, as a decode loop hands it to
+    the attention: a view, or, where the stack is a ``DTensor`` whose layer
+    dimension is cut over the mesh (``layers -> pod``), a ``StackLayer``
+    that only context-parallel decode reads and writes."""
+    placements = getattr(stack, "placements", None)
+    if placements is not None and any(p.is_shard(0) for p in placements):
+        from repro_torch.dist.context_parallel import StackLayer
+        return StackLayer(stack, i)
+    return stack[i]
+
+
 def decode_self_attention(params, x, k_cache, v_cache, cache_len, *, cfg: ModelConfig):
     """x: [B,1,D]; caches: [B,Smax,Hk,hd]. Writes the new K/V at ``cache_len``
     in place (a row with ``cache_len >= Smax`` writes nothing, as the
@@ -230,6 +244,9 @@ def decode_self_attention(params, x, k_cache, v_cache, cache_len, *, cfg: ModelC
         out = _context_parallel(params, x, k_cache, v_cache, cache_len, cfg=cfg)
         if out is not None:
             return out
+    if isinstance(k_cache, tuple):
+        raise ValueError("a cache stack cut over its layers is read by context-parallel "
+                         "decode alone (decode_cp under rules whose mesh has a model axis)")
     b, s_max = x.shape[0], k_cache.shape[1]
     lens = torch.as_tensor(cache_len, dtype=torch.int32, device=x.device).expand(b)
     q, k_new, v_new = project_qkv(params, x, cfg=cfg, positions=lens[:, None])
@@ -253,15 +270,22 @@ def _context_parallel(params, x, k_cache, v_cache, cache_len, *, cfg: ModelConfi
     The caches are ``DTensor``s (``NamedSharding.distribute``) whose global
     shape the spec is resolved from, sharded as the reference's ``shard_map``
     takes them: ``P(batch, kv_seq axes, None, None)``; x and ``cache_len``
-    hold this rank's batch rows."""
+    hold this rank's batch rows.  Where the rules cut the stack's layers
+    the caches are ``StackLayer``s of the stacks (:func:`cache_layer`), and
+    ``cp_decode_stack_layer`` moves this rank's rows of the layer in from
+    their owner and the new tokens back."""
     from repro_torch.dist import sharding as shd
     ctx = shd.model_rules()
     if ctx is None:
         return None
     from torch.distributed.tensor import DTensor
 
-    from repro_torch.dist.context_parallel import cp_decode_self_attention
+    from repro_torch.dist import context_parallel as cp
     mesh, rules = ctx
+    if isinstance(k_cache, cp.StackLayer):
+        out = cp.cp_decode_stack_layer(params, x, k_cache, v_cache, cache_len, cfg=cfg,
+                                       mesh=mesh, rules=rules)
+        return out, k_cache, v_cache
     spec = shd.resolve_pspec(tuple(k_cache.shape), ("batch", "kv_seq", "kv_heads", "qkv"),
                              mesh, rules)
     seq_axes = spec[1] if spec[1] is not None else "model"
@@ -273,8 +297,8 @@ def _context_parallel(params, x, k_cache, v_cache, cache_len, *, cfg: ModelConfi
     kc, vc = k_cache.to_local(), v_cache.to_local()
     if x.shape[0] != kc.shape[0]:
         raise ValueError(f"x holds {x.shape[0]} rows, this rank's cache shard {kc.shape[0]}")
-    out, _, _ = cp_decode_self_attention(params, x, kc, vc, cache_len, cfg=cfg, mesh=mesh,
-                                         axis=seq_axes)
+    out, _, _ = cp.cp_decode_self_attention(params, x, kc, vc, cache_len, cfg=cfg, mesh=mesh,
+                                            axis=seq_axes)
     return out, k_cache, v_cache
 
 

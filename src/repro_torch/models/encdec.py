@@ -176,8 +176,9 @@ def decode_step(params, tokens, cache, cache_len, *, cfg: ModelConfig, extra=Non
     for i in range(cfg.num_layers):
         lp = _layer(params["dec_layers"], i)
         h = L.layernorm(lp["attn_norm"], x, cfg.norm_eps)
-        a, _, _ = attn.decode_self_attention(lp["attn"], h, cache["self"]["k"][i],
-                                             cache["self"]["v"][i], lens, cfg=cfg)
+        a, _, _ = attn.decode_self_attention(
+            lp["attn"], h, attn.cache_layer(cache["self"]["k"], i),
+            attn.cache_layer(cache["self"]["v"], i), lens, cfg=cfg)
         x = x + a
         h = L.layernorm(lp["xattn_norm"], x, cfg.norm_eps)
         x = x + attn.decode_cross_attention(lp["xattn"], h, cache["cross"]["k"][i],

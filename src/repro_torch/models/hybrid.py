@@ -187,8 +187,9 @@ def decode_step(params, tokens, cache, cache_len, *, cfg: ModelConfig, extra=Non
     lens = lens.expand(x.shape[0]).contiguous()
     for stack, i in _blocks(cfg):
         if stack == "shared":
-            x = _shared_attn_decode(params["shared"], x, x0, cache["attn"]["k"][i],
-                                    cache["attn"]["v"][i], lens, cfg=cfg)
+            x = _shared_attn_decode(params["shared"], x, x0,
+                                    attn.cache_layer(cache["attn"]["k"], i),
+                                    attn.cache_layer(cache["attn"]["v"], i), lens, cfg=cfg)
             continue
         lp = _layer(params[f"{stack}_layers"], i)
         h = L.rmsnorm(lp["norm"], x, cfg.norm_eps)

@@ -346,7 +346,7 @@ def decode_step(params, tokens: torch.Tensor, cache: dict, cache_len, *,
     lens = lens.expand(x.shape[0]).contiguous()
     for kind, stack, entry, i in _blocks(cfg):
         lp = _layer(params[stack], i)
-        kc, vc = cache[entry]["k"][i], cache[entry]["v"][i]
+        kc, vc = (attn.cache_layer(cache[entry][n], i) for n in ("k", "v"))
         if kind == "cross":
             x = _cross_block_decode(lp, x, kc, vc, cfg=cfg)
         else:

@@ -28,7 +28,14 @@ JAX and cross as a checkpoint in the reference's format.  The checks:
 - ``restore_sharded`` of a reference-written checkpoint: each rank's shards
   bit for bit;
 - the sharded train step against the reference's single-device step: loss
-  1e-3, params 5e-3 (the reference test's bounds).
+  1e-3, params 5e-3 (the reference test's bounds);
+- on (2, 2, 2) ("pod", "data", "model"), where the default rules cut every
+  layer stack over pod: the sharded train step of llama3.2-3b at 4 layers
+  and of mixtral's smoke config under the same bounds, with a planted
+  fault (each layer gathered from the other pod) beyond the grad-norm
+  bound; and llama4's context-parallel ``decode_step`` over cache stacks
+  cut over pod, data and model, logits within 1e-5 of the reference's
+  single-device ``decode_step``.
 """
 import functools
 import os
@@ -75,6 +82,13 @@ CP_CASES = {"default": ({}, 4, [3, 33, 63, 0]), "window": ({"sliding_window": 16
             "batch1": ({}, 1, [40])}
 TRAIN_CFGS = {"llama3.2-3b": dict(vocab_size=384, d_model=64, d_ff=128),
               "mixtral-8x22b": dict(vocab_size=384)}
+# the (2, 2, 2) ("pod", "data", "model") mesh: stacks that split over pod
+POD_TRAIN_CFGS = {"llama3.2-3b": dict(TRAIN_CFGS["llama3.2-3b"], num_layers=4),
+                  "mixtral-8x22b": TRAIN_CFGS["mixtral-8x22b"]}
+POD_MESH = ((2, 2, 2), ("pod", "data", "model"))
+POD_DECODE_ARCH = "llama4-maverick-400b-a17b"
+POD_DECODE_LENS = [3, 31, 32, 63, 0, 17, 45, 33]     # on and across the sequence shards' edge
+POD_DECODE_SEQ = 64
 
 _MOE_REF = """
     import sys
@@ -135,17 +149,37 @@ def _inputs() -> tuple[dict, dict]:
     inp["pp"] = {"params": pp, "tokens": tokens, "labels": labels}
     ref["pp"] = {"logits": logits, "loss": loss, "grads": grads}
 
-    for name, over in TRAIN_CFGS.items():
-        tcfg = jget_smoke(name).with_(**over)
-        tp = jreg.init_params(tcfg, _key(0))
-        ocfg = jopt.OptimizerConfig(total_steps=2, warmup_steps=0)
-        state = jopt.init_state(tp, ocfg)
-        batch = {"tokens": jax.random.randint(_key(1), (8, 32), 0, 384),
-                 "labels": jax.random.randint(_key(2), (8, 32), 0, 384)}
-        p2, s2, m = jax.jit(jmake_train_step(tcfg, ocfg))(tp, state, batch)
-        inp[f"train_{name}"] = {"params": tp, "state": state, **batch}
-        ref[f"train_{name}"] = {"params": p2, "loss": m["loss"], "grad_norm": m["grad_norm"]}
+    for key, cfgs in (("train", TRAIN_CFGS), ("pod_train", POD_TRAIN_CFGS)):
+        for name, over in cfgs.items():
+            inp[f"{key}_{name}"], ref[f"{key}_{name}"] = _train_inputs(name, over)
+
+    dcfg = jget_smoke(POD_DECODE_ARCH)
+    dp = jreg.init_params(dcfg, _key(6))
+    b = len(POD_DECODE_LENS)
+    cache = {}
+    for i, (path, sp) in enumerate(sorted(jreg.cache_specs(dcfg, b, POD_DECODE_SEQ).items())):
+        cache[path] = jax.random.normal(_key(10 + i), sp.shape, jnp.float32)
+    cache = jcommon.unflatten(cache)
+    tokens = jax.random.randint(_key(7), (b, 1), 0, dcfg.vocab_size)
+    lens = jnp.asarray(POD_DECODE_LENS, jnp.int32)
+    inp["pod_decode"] = {"params": dp, "cache": cache, "tokens": tokens, "lens": lens}
+    logits, c2 = jax.jit(functools.partial(jreg.decode_step, dcfg))(dp, tokens, cache, lens)
+    ref["pod_decode"] = {"logits": logits, "cache": c2}
     return inp, ref
+
+
+def _train_inputs(name: str, over: dict) -> tuple[dict, dict]:
+    """A smoke config's params, AdamW state and batch, and the reference's
+    single-device step on them."""
+    tcfg = jget_smoke(name).with_(**over)
+    tp = jreg.init_params(tcfg, _key(0))
+    ocfg = jopt.OptimizerConfig(total_steps=2, warmup_steps=0)
+    state = jopt.init_state(tp, ocfg)
+    batch = {"tokens": jax.random.randint(_key(1), (8, 32), 0, 384),
+             "labels": jax.random.randint(_key(2), (8, 32), 0, 384)}
+    p2, _, m = jax.jit(jmake_train_step(tcfg, ocfg))(tp, state, batch)
+    return ({"params": tp, "state": state, **batch},
+            {"params": p2, "loss": m["loss"], "grad_norm": m["grad_norm"]})
 
 
 @pytest.fixture(scope="module")
@@ -204,6 +238,46 @@ def test_resolve_pspec_axis_used_once():
     assert spec == P("data", "model", None, None)
     spec = resolve_pspec((1, 64, 8, 128), ("batch", "kv_seq", "kv_heads", "qkv"), mesh, rules)
     assert spec == P(None, ("data", "model"), None, None)
+
+
+def test_shard_coordinate_inverts_the_shard_index():
+    mesh = shd.abstract_mesh((2, 4, 3), ("pod", "data", "model"))
+    for axes in (("pod",), ("pod", "data"), ("data", "pod", "model"), ()):
+        n = int(np.prod([shd.mesh_sizes(mesh)[a] for a in axes]))
+        seen = set()
+        for idx in range(n):
+            c = shd.shard_coordinate(mesh, axes, idx)
+            back = 0
+            for a in axes:
+                back = back * shd.mesh_sizes(mesh)[a] + c[a]
+            assert back == idx and set(c) == set(axes)
+            seen.add(tuple(sorted(c.items())))
+        assert len(seen) == n
+
+
+def test_cache_layer_is_the_stack_view_unless_its_layers_are_cut():
+    """The single-mesh decode loops read ``stack[i]`` as before; only a
+    ``DTensor`` stack whose layer dimension is sharded becomes a
+    ``StackLayer``."""
+    from torch.distributed.tensor.placement_types import Replicate, Shard
+
+    from repro_torch.dist.context_parallel import StackLayer
+    from repro_torch.models.attention import cache_layer
+    stack = torch.arange(24.0).reshape(2, 3, 4)
+    got = cache_layer(stack, 1)
+    assert got.data_ptr() == stack[1].data_ptr() and torch.equal(got, stack[1])
+
+    class Stub:             # a DTensor's placements, without a process group
+        def __init__(self, placements):
+            self.placements = placements
+
+        def __getitem__(self, i):
+            return ("view", i)
+
+    assert cache_layer(Stub((Shard(1), Shard(2))), 3) == ("view", 3)
+    assert cache_layer(Stub((Replicate(), Shard(1))), 0) == ("view", 0)
+    cut = Stub((Shard(0), Shard(1), Shard(2)))
+    assert cache_layer(cut, 5) == StackLayer(cut, 5)
 
 
 @pytest.mark.parametrize("name", sorted(JARCHS))
@@ -340,3 +414,78 @@ def test_gspmd_train_step_bound_sees_unsummed_gradients(world, name):
         got = float(res[f"unsummed_{name}"]["grad_norm"])
         assert np.isfinite(got)
         assert abs(got - gn) > 1e-4 * gn, (r, got, gn)
+
+
+# ---------------------------------------------------------------------------
+# the (2, 2, 2) ("pod", "data", "model") mesh: stacks cut over pod
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", sorted(POD_TRAIN_CFGS))
+def test_pod_sharded_train_step_matches_reference(world, name):
+    """The sharded step on (2, 2, 2) under the default rules, which cut
+    every layer stack over pod (each pod holds half the layers): the
+    bounds of ``test_gspmd_train_step_with_rules`` against the reference's
+    single-device step, and each rank's shards of the pod-cut specs."""
+    ref = world["ref"][f"pod_train_{name}"]
+    jp = jcommon.flatten(ref["params"])
+    specs = registry.param_specs(get_smoke(name).with_(**POD_TRAIN_CFGS[name]))
+    mesh = shd.abstract_mesh(*POD_MESH)
+    cut = [p for p, s in specs.items()
+           if shd.resolve_pspec(s.shape, s.axes, mesh, "default")[0] == "pod"]
+    assert cut and all(specs[p].axes[0] == "layers" for p in cut), cut
+    gn = float(ref["grad_norm"])
+    for r, res in enumerate(world["ranks"]):
+        got = res[f"pod_train_{name}"]
+        assert np.isfinite(float(got["loss"]))
+        assert abs(float(got["loss"]) - float(ref["loss"])) < 1e-3
+        assert abs(float(got["grad_norm"]) - gn) <= 1e-4 * gn, (r, float(got["grad_norm"]), gn)
+        err = max(float(np.max(np.abs(_np(t) - np.asarray(jp[p].astype(jnp.float32)))))
+                  for p, t in jcommon.flatten(got["params"]).items())
+        assert err < 5e-3, (r, err)
+        for path, t in jcommon.flatten(got["local"]).items():
+            s = specs[path]
+            sh = shd.NamedSharding(mesh, shd.resolve_pspec(s.shape, s.axes, mesh, "default"))
+            assert tuple(t.shape) == sh.shard_shape(s.shape), path
+
+
+@pytest.mark.parametrize("name", sorted(POD_TRAIN_CFGS))
+def test_pod_sharded_train_step_bound_sees_the_wrong_pod(world, name):
+    """A planted fault: the same step gathering each layer from the other
+    pod (the layer at the same slot there) lands beyond the grad-norm bound
+    on every rank."""
+    gn = float(world["ref"][f"pod_train_{name}"]["grad_norm"])
+    for r, res in enumerate(world["ranks"]):
+        got = float(res[f"wrong_pod_{name}"]["grad_norm"])
+        assert np.isfinite(got)
+        assert abs(got - gn) > 1e-4 * gn, (r, got, gn)
+
+
+def test_pod_context_parallel_decode_step_matches_reference(world):
+    """``registry.decode_step`` of llama4's smoke config with ``decode_cp``
+    under the default rules on (2, 2, 2): each cache stack cut over layers
+    (pod), batch (data) and sequence (model), while the attention's layer
+    spec cuts the batch over (pod, data).  The logits within 1e-5 of the
+    reference's single-device ``decode_step``; the gathered stacks equal
+    its caches, bit for bit where nothing was written and within 1e-5 at
+    the written positions (each layer's new token follows the layers
+    before it)."""
+    ref = world["ref"]["pod_decode"]
+    want = jcommon.flatten(ref["cache"])
+    b, s = len(POD_DECODE_LENS), POD_DECODE_SEQ
+    written = np.zeros((b, s), bool)
+    written[np.arange(b), POD_DECODE_LENS] = True
+    for r, res in enumerate(world["ranks"]):
+        got = res["pod_decode"]
+        np.testing.assert_allclose(_np(got["logits"]), np.asarray(ref["logits"]), atol=1e-5,
+                                   rtol=0, err_msg=f"rank {r}")
+        for path, t in jcommon.flatten(got["cache"]).items():
+            g, w = _np(t), np.asarray(want[path])
+            np.testing.assert_array_equal(g[:, ~written], w[:, ~written])
+            np.testing.assert_allclose(g[:, written], w[:, written], atol=1e-5, rtol=0)
+            key = "/".join(path)
+            # layers over pod, batch over data, sequence over model
+            assert [int(v) for v in got["specs"][key]] == [1, 1, 1, 0, 0], (path, got["specs"])
+            lay, _, _, hk, hd = w.shape
+            assert tuple(int(v) for v in got["local"][key]) == (lay // 2, b // 2, s // 2, hk,
+                                                                 hd), path

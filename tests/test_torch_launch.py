@@ -38,6 +38,7 @@ from repro.configs import get_config as jget_config
 from repro_torch import common
 from repro_torch.common import scopes
 from repro_torch.configs import ShapeCell, get_config, get_smoke
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels import decode_attention as kda
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import ivf_scan as kivf
@@ -291,6 +292,74 @@ def test_dryrun_train_cell_on_a_fake_world_subprocess(tmp_path):
     assert abs(mem["argument"] - (params + cache / 8)) < 1e-3 * mem["argument"], mem
     assert mem["temp"] < mem["argument"], mem         # the whole cache would be 8 x
     assert dec["roofline"]["coll_breakdown"]["all-reduce"] > 0
+
+
+# the multi mesh's cells at smoke widths: train_4k's and decode_32k's kinds
+# cut to a length every smoke config takes (whisper's learned positions stop
+# at 128), with stacks that split over pod
+MULTI_TRAIN = ShapeCell("train_cut", 64, 16, "train")
+MULTI_DECODE = ShapeCell("decode_cut", 256, 16, "decode")
+
+
+def _multi_cfg(arch: str):
+    cfg = get_smoke(arch)
+    return cfg.with_(num_layers=4) if cfg.num_layers == 3 else cfg
+
+
+def test_dryrun_multi_mesh_cells_with_pod_cut_stacks_subprocess(tmp_path):
+    """``--mesh multi`` on a fake (2, 2, 2) world: every arch's train cell
+    (the sharded step over stacks the default rules cut over pod) and
+    llama4's decode cell (context-parallel decode over cache stacks cut over
+    pod, data and model) build and trace without an error (the cells that
+    ``run_cell`` recorded as ``error`` before).  The decode cell's arguments
+    are the whole params and 1/8 of the cache stacks."""
+    archs = sorted(dryrun.ARCHS)
+    mesh = shd.abstract_mesh((2, 2, 2), ("pod", "data", "model"))
+    for arch in archs:        # each case is real: some stack is cut over pod
+        specs = registry.param_specs(_multi_cfg(arch))
+        assert any(s.axes[0] == "layers"
+                   and shd.resolve_pspec(s.shape, s.axes, mesh, "default")[0] == "pod"
+                   for s in specs.values()), arch
+    dec = "llama4-maverick-400b-a17b"
+    cache = registry.cache_specs(get_smoke(dec), MULTI_DECODE.global_batch,
+                                 MULTI_DECODE.seq_len)
+    assert all(shd.resolve_pspec(s.shape, s.axes, mesh, "default")[:3] == ("pod", "data", "model")
+               for s in cache.values())
+    code = f"""
+        import json
+        from repro_torch.configs import ShapeCell, get_smoke
+        from repro_torch.launch import dryrun
+
+        def cell(arch, shape):
+            cfg = get_smoke(arch)
+            cfg = cfg.with_(num_layers=4) if cfg.num_layers == 3 else cfg
+            with dryrun.fake_world(8):
+                mesh = dryrun.make_mesh("multi")
+                traced, meta = dryrun.build_cell(arch, shape, mesh, cfg=cfg)
+                rl, _ = dryrun.analyse_cell(traced, cfg, shape, arch=arch, shape=shape.name,
+                                            mesh_name="multi", chips=8)
+            return {{**meta, "roofline": rl.to_json()}}
+
+        out = {{arch: cell(arch, {MULTI_TRAIN!r}) for arch in {archs!r}}}
+        out["decode"] = cell({dec!r}, {MULTI_DECODE!r})
+        print(json.dumps(out))
+    """
+    env = dict(os.environ, PYTHONPATH=SRC, REPRO_DRYRUN_DEVICES="8")
+    r = subprocess.run([sys.executable, "-c", textwrap.dedent(code)], capture_output=True,
+                       text=True, env=env, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    for arch in archs:
+        assert out[arch]["kind"] == "train" and out[arch]["rules"] == "default"
+        assert out[arch]["roofline"]["coll_breakdown"].get("broadcast", 0) > 0, arch
+    rec = out["decode"]
+    assert rec["kind"] == "decode" and rec["rules"] == "default"
+    mem = rec["roofline"]["mem_per_dev"]
+    cfg = _multi_cfg(dec)
+    whole = common.param_bytes(registry.param_specs(cfg)) + common.param_bytes(cache) / 8
+    assert abs(mem["argument"] - whole) < 1e-3 * mem["argument"], (mem, whole)
+    coll = rec["roofline"]["coll_breakdown"]
+    assert coll.get("broadcast", 0) > 0 and coll.get("all-reduce", 0) > 0, coll
 
 
 def test_dryrun_skipped_cell_carries_the_reference_reason(tmp_path):

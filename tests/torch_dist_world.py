@@ -6,7 +6,8 @@ port's distribution layer on the inputs the test wrote and saves what it got.
 WORKDIR holds ``in/`` (a checkpoint in the reference's format: the inputs)
 and, for the restore check, ``ref_ckpt/``.  Each rank writes
 ``out_<rank>/`` (the port's checkpoint format).  Every check shares the one
-world of RANKS (8) processes; each builds the mesh it needs over it.
+world of RANKS (8) processes; each builds the mesh it needs over it, the
+pod checks a (2, 2, 2) ("pod", "data", "model") mesh.
 """
 from __future__ import annotations
 
@@ -89,11 +90,16 @@ TRAIN_CFGS = {"llama3.2-3b": dict(vocab_size=384, d_model=64, d_ff=128),
               "mixtral-8x22b": dict(vocab_size=384)}
 
 
-def train_step(inp, mesh, name: str) -> dict:
+# the (2, 2, 2) ("pod", "data", "model") mesh's configs: stacks that split by 2
+POD_TRAIN_CFGS = {"llama3.2-3b": dict(TRAIN_CFGS["llama3.2-3b"], num_layers=4),
+                  "mixtral-8x22b": TRAIN_CFGS["mixtral-8x22b"]}
+
+
+def train_step(inp, mesh, name: str, key: str = "train", cfgs=TRAIN_CFGS) -> dict:
     from repro_torch.dist.trainstep import make_sharded_train_step
     from repro_torch.train import optimizer as opt
-    t = inp[f"train_{name}"]
-    cfg = get_smoke(name).with_(**TRAIN_CFGS[name])
+    t = inp[f"{key}_{name}"]
+    cfg = get_smoke(name).with_(**cfgs[name])
     ocfg = opt.OptimizerConfig(total_steps=2, warmup_steps=0)
     pspecs = registry.param_specs(cfg)
     psh = shd.spec_shardings(pspecs, mesh)
@@ -119,6 +125,48 @@ def train_step_unsummed(inp, mesh, name: str) -> dict:
         trainstep._grad_shard = real
 
 
+def pod_train_step(inp, mesh, name: str) -> dict:
+    return train_step(inp, mesh, name, "pod_train", POD_TRAIN_CFGS)
+
+
+def pod_train_step_wrong_pod(inp, mesh, name: str) -> dict:
+    """A planted fault: the sharded step on the pod mesh reading each layer
+    from the other pod (the layer at the same slot there)."""
+    from repro_torch.dist import trainstep
+    real = trainstep._owner
+    trainstep._owner = lambda i, per: (i // per + 1) % 2
+    try:
+        return pod_train_step(inp, mesh, name)
+    finally:
+        trainstep._owner = real
+
+
+def pod_decode(inp, mesh) -> dict:
+    """``registry.decode_step`` of llama4's smoke config with ``decode_cp``
+    under the default rules on the pod mesh: each cache stack a ``DTensor``
+    cut over layers (pod), batch (data) and sequence (model), x this rank's
+    rows of the attention's spec; the logits and the stacks gathered back."""
+    d = inp["pod_decode"]
+    cfg = get_smoke("llama4-maverick-400b-a17b").with_(decode_cp=True)
+    whole = flatten(d["cache"])
+    specs = registry.cache_specs(cfg, *whole[("dense", "k")].shape[1:3])
+    rows_sh = shd.NamedSharding(mesh, shd.resolve_pspec(d["tokens"].shape, ("batch", None),
+                                                        mesh, "default"))
+    rows = rows_sh.local_slices(d["tokens"].shape)[0]
+    cache_sh = {p: shd.NamedSharding(mesh, shd.resolve_pspec(s.shape, s.axes, mesh, "default"))
+                for p, s in specs.items()}
+    cache = unflatten({p: cache_sh[p].distribute(whole[p]) for p in specs})
+    with shd.activation_rules(mesh, "default"):
+        logits, cache = registry.decode_step(cfg, d["params"], d["tokens"][rows], cache,
+                                             d["lens"][rows])
+    lay = flatten(cache)
+    return {"logits": shd.NamedSharding(mesh, shd.P(rows_sh.spec[0], None, None)).gather(logits),
+            "cache": unflatten({p: cache_sh[p].gather(t.to_local()) for p, t in lay.items()}),
+            "specs": {"/".join(p): torch.tensor([len(shd.entry_axes(e)) for e in sh.spec])
+                      for p, sh in cache_sh.items()},
+            "local": {"/".join(p): torch.tensor(t.to_local().shape) for p, t in lay.items()}}
+
+
 def restore(root, mesh) -> dict:
     sh = {"params": {"w": shd.NamedSharding(mesh, shd.P("data", "model")),
                      "b": shd.NamedSharding(mesh, shd.P(None, ("data", "model")))}}
@@ -142,6 +190,11 @@ def rank_main(rank: int, world: int, root: str) -> None:
                "moe_4x2": moe(inp, make_test_mesh((4, 2), ("data", "model"))),
                "moe_1x8": moe(inp, make_test_mesh((1, 8), ("data", "model"))),
                "pp": pipeline(inp, make_test_mesh((2, 4), ("pod", "data")))}
+        pm = make_test_mesh((2, 2, 2), ("pod", "data", "model"))
+        res.update({"pod_decode": pod_decode(inp, pm),
+                    **{f"pod_train_{n}": pod_train_step(inp, pm, n) for n in POD_TRAIN_CFGS},
+                    **{f"wrong_pod_{n}": pod_train_step_wrong_pod(inp, pm, n)
+                       for n in POD_TRAIN_CFGS}})
         ckpt.save(os.path.join(root, f"out_{rank}"), 0, res)
     finally:
         dist.destroy_process_group()
