@@ -12,6 +12,10 @@ Four primitives, as the reference's:
 Predicate/compare/choose need one output token, so they are served by one
 teacher-forced forward pass over a padded batch; generate() runs through
 the continuous-batching scheduler.
+
+Under a tracer (``obs.trace``) each scored batch is an ``engine/score``
+span (``rows``, ``width`` and the real ``tokens``, so its padding is
+``rows * width - tokens``).
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from repro_torch.engine.runner import ModelRunner
 from repro_torch.engine.sampler import Sampler
 from repro_torch.engine.scheduler import ContinuousBatchScheduler, Request
 from repro_torch.models import registry
+from repro_torch.obs import trace as _trace
 
 
 @dataclasses.dataclass
@@ -84,14 +89,19 @@ class InferenceEngine:
         seqs = [TOKENIZER.encode(p)[: self.runner.max_seq] for p in prompts]
         out = []
         bs = 32
+        tr = _trace.current_tracer()
         for i in range(0, len(seqs), bs):
-            chunk = seqs[i:i + bs]
-            width = max(16, max(len(s) for s in chunk))
-            toks = TOKENIZER.pad_batch(chunk, width)
-            lp = self.runner.logprobs(toks)  # [b, T, V] log-softmax
-            idx = np.asarray([min(len(s), width) - 1 for s in chunk])
-            out.append(lp[np.arange(len(chunk)), idx])
-            self.stats.add(len(chunk), sum(len(s) for s in chunk), len(chunk))
+            with _trace.span_in(tr, "engine/score") as sp:
+                chunk = seqs[i:i + bs]
+                width = max(16, max(len(s) for s in chunk))
+                toks = TOKENIZER.pad_batch(chunk, width)
+                lp = self.runner.logprobs(toks)  # [b, T, V] log-softmax
+                idx = np.asarray([min(len(s), width) - 1 for s in chunk])
+                out.append(lp[np.arange(len(chunk)), idx])
+                real = sum(len(s) for s in chunk)
+                self.stats.add(len(chunk), real, len(chunk))
+                if tr is not None:
+                    sp.set(rows=len(chunk), width=width, tokens=real)
         return np.concatenate(out, axis=0)
 
     def predicate(self, prompts: list[str]) -> tuple[np.ndarray, np.ndarray]:

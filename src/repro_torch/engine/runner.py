@@ -13,6 +13,13 @@ prefilled at the prompt's true length, a departure from the reference
 the reference's pad tokens enter the state that decode continues from.
 Eager torch has no compilation for a bucket to bound.
 
+Under a tracer (``obs.trace``) each slot step is a span,
+``runner/prefill`` (``tokens``, ``bucket``) or ``runner/decode``, tiled by
+two children: ``runner/enqueue``, from entry until the step's last device
+work is queued, and ``runner/to_host``, the copy of the logits that waits
+for the device.  The spans add no synchronisation; untraced, no span is
+made.
+
 A fault of the device inside a step (an illegal address in a kernel, a
 failed launch inside torch) surfaces as a torch ``RuntimeError`` at the
 step's copy to the host, and leaves the CUDA context unusable, so a retry
@@ -29,6 +36,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels._build import KernelError
 from repro_torch.models import registry
+from repro_torch.obs import trace as _trace
 
 _DEVICE_FAULT_PREFIXES = ("CUDA error", "CUDA driver error")
 
@@ -94,28 +102,39 @@ class ModelRunner:
         t = int(tokens.shape[0])
         assert t <= self.max_seq, f"prompt {t} > max_seq {self.max_seq}"
         bucket = t if self.cfg.family in registry.RECURRENT else min(_bucket(t), self.max_seq)
-        padded = np.zeros((1, bucket), np.int32)
-        padded[0, :t] = tokens
-        row = {entry: {name: c[:, slot:slot + 1] for name, c in kv.items()}
-               for entry, kv in self.cache.items()}
-        with _device_faults():
-            for kv in row.values():
-                for c in kv.values():
-                    c.zero_()
-            logits, _ = registry.prefill(self.cfg, self.params, self._tensor(padded), row,
-                                         extra=self._extra(extra))
-            return logits[0, t - 1].float().cpu().numpy()
+        tr = _trace.current_tracer()
+        with _trace.span_in(tr, "runner/prefill") as sp, _device_faults():
+            if tr is not None:
+                sp.set(tokens=t, bucket=bucket)
+            with _trace.span_in(tr, "runner/enqueue"):
+                padded = np.zeros((1, bucket), np.int32)
+                padded[0, :t] = tokens
+                row = {entry: {name: c[:, slot:slot + 1] for name, c in kv.items()}
+                       for entry, kv in self.cache.items()}
+                for kv in row.values():
+                    for c in kv.values():
+                        c.zero_()
+                logits, _ = registry.prefill(self.cfg, self.params, self._tensor(padded), row,
+                                             extra=self._extra(extra))
+                last = logits[0, t - 1].float()
+            with _trace.span_in(tr, "runner/to_host"):
+                return last.cpu().numpy()
 
     # -- one decode step over all slots ----------------------------------
     @torch.inference_mode()
     def decode(self, tokens: np.ndarray, lens: np.ndarray) -> np.ndarray:
         """tokens: [slots] int32 (next input per slot); lens: [slots] int32.
         Returns logits [slots, V] (f32)."""
-        with _device_faults():
-            lens_t = torch.from_numpy(np.asarray(lens, np.int32)).to(self.device)
-            logits, _ = registry.decode_step(self.cfg, self.params,
-                                             self._tensor(tokens[:, None]), self.cache, lens_t)
-            return logits[:, 0].float().cpu().numpy()
+        tr = _trace.current_tracer()
+        with _trace.span_in(tr, "runner/decode"), _device_faults():
+            with _trace.span_in(tr, "runner/enqueue"):
+                lens_t = torch.from_numpy(np.asarray(lens, np.int32)).to(self.device)
+                logits, _ = registry.decode_step(self.cfg, self.params,
+                                                 self._tensor(tokens[:, None]), self.cache,
+                                                 lens_t)
+                last = logits[:, 0].float()
+            with _trace.span_in(tr, "runner/to_host"):
+                return last.cpu().numpy()
 
     # -- whole-sequence scoring (no cache) -------------------------------
     @torch.inference_mode()

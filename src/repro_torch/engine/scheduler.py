@@ -12,6 +12,11 @@ Fault tolerance / straggler mitigation:
   * a ``fault_hook`` is invoked around model steps so tests can inject
     worker failures (exceptions) and verify the scheduler recovers.
 
+Under a tracer (``obs.trace``) each step that does work is a
+``scheduler/step`` span (``phase`` prefill or decode, ``rids`` the requests
+it advanced by a token), parent of the runner's span, so its self time is
+the sampler's and the slots' bookkeeping.
+
 The fault path catches ``RuntimeError`` only, as the reference's.  A kernel
 that fails to build or launch raises ``kernels._build.KernelError``, which
 is not one, and the runner re-raises a device fault that surfaces later
@@ -29,6 +34,7 @@ import numpy as np
 
 from repro_torch.engine.runner import ModelRunner
 from repro_torch.engine.sampler import Sampler
+from repro_torch.obs import trace as _trace
 
 
 @dataclasses.dataclass
@@ -114,30 +120,40 @@ class ContinuousBatchScheduler:
         self._check_deadlines()
 
         slot = self._free_slot()
-        if self.queue and slot is not None:
-            req = self.queue.popleft()
-            req.started_at = time.monotonic()
-            try:
-                self.fault_hook()
-                logits = self.runner.prefill_into_slot(req.tokens, slot, req.extra)
-            except RuntimeError:
-                self._requeue_or_fail(req)
-                return True
-            self.prefill_steps += 1
-            req.first_logits = logits
-            tok = int(self.sampler(logits[None])[0])
-            req.out_tokens.append(tok)
-            self.slot_req[slot] = req
-            self.slot_len[slot] = len(req.tokens)
-            self.slot_next[slot] = tok
-            if self._req_finished(req):
-                self._finish(slot)
-            return True
-
         active = [i for i, r in enumerate(self.slot_req) if r is not None]
-        if not active:
+        prefill = bool(self.queue) and slot is not None
+        if not prefill and not active:
             return bool(self.queue)
+        tr = _trace.current_tracer()
+        with _trace.span_in(tr, "scheduler/step") as sp:
+            if tr is not None:
+                rids = [self.queue[0].rid] if prefill else [self.slot_req[i].rid for i in active]
+                sp.set(phase="prefill" if prefill else "decode", rids=rids)
+            if prefill:
+                self._prefill(self.queue.popleft(), slot)
+            else:
+                self._decode(active)
+        return True
 
+    def _prefill(self, req: Request, slot: int) -> None:
+        req.started_at = time.monotonic()
+        try:
+            self.fault_hook()
+            logits = self.runner.prefill_into_slot(req.tokens, slot, req.extra)
+        except RuntimeError:
+            self._requeue_or_fail(req)
+            return
+        self.prefill_steps += 1
+        req.first_logits = logits
+        tok = int(self.sampler(logits[None])[0])
+        req.out_tokens.append(tok)
+        self.slot_req[slot] = req
+        self.slot_len[slot] = len(req.tokens)
+        self.slot_next[slot] = tok
+        if self._req_finished(req):
+            self._finish(slot)
+
+    def _decode(self, active: list[int]) -> None:
         try:
             self.fault_hook()
             logits = self.runner.decode(self.slot_next, self.slot_len)
@@ -145,7 +161,7 @@ class ContinuousBatchScheduler:
             # worker fault mid-decode: re-queue everything in flight
             for i in list(active):
                 self._finish(i, failed=True)
-            return True
+            return
         self.decode_steps += 1
         toks = self.sampler(logits)
         for i in active:
@@ -156,7 +172,6 @@ class ContinuousBatchScheduler:
             self.slot_next[i] = tok
             if self._req_finished(req) or self.slot_len[i] + 1 >= self.runner.max_seq:
                 self._finish(i)
-        return True
 
     @staticmethod
     def _req_finished(req: Request) -> bool:

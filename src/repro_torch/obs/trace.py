@@ -14,6 +14,12 @@ thread snapshots its context with ``capture()`` and fragment / worker /
 dispatcher threads re-install it with ``activate_ctx()``, so spans opened
 on other threads still parent into the owning session or operator span.
 
+Durations are on ``time.monotonic``.  Each tracer also reads
+``time.monotonic_ns`` and ``time.time_ns`` once, together, when it is made
+or reset, so every span gives its start and end on the epoch clock as well
+(``Span.wall0_ns`` / ``wall1_ns``): the clock of ``torch.profiler``'s
+device records, against which host spans are matched.
+
 Exports: ``Tracer.export_jsonl()`` (one span per line) and
 ``Tracer.export_chrome()`` (Chrome ``trace_event`` JSON, loadable in
 Perfetto / ``chrome://tracing``).
@@ -42,10 +48,10 @@ class Span:
     are ints, seconds/thresholds are floats, identifiers are strings."""
 
     __slots__ = ("span_id", "parent_id", "name", "kind", "t0", "t1",
-                 "attrs", "thread")
+                 "attrs", "thread", "wall_off_ns")
 
     def __init__(self, span_id: int, parent_id: int | None, name: str,
-                 kind: str, attrs: dict):
+                 kind: str, attrs: dict, wall_off_ns: int = 0):
         self.span_id = span_id
         self.parent_id = parent_id
         self.name = name
@@ -54,6 +60,17 @@ class Span:
         self.t1: float | None = None
         self.attrs = attrs
         self.thread = threading.get_ident()
+        self.wall_off_ns = wall_off_ns   # epoch ns - monotonic ns, the tracer's anchor
+
+    @property
+    def wall0_ns(self) -> int:
+        """Start in epoch nanoseconds (``time.time_ns``)."""
+        return self.wall_off_ns + round(self.t0 * 1e9)
+
+    @property
+    def wall1_ns(self) -> int | None:
+        """End in epoch nanoseconds; ``None`` while the span is open."""
+        return None if self.t1 is None else self.wall_off_ns + round(self.t1 * 1e9)
 
     @property
     def dur_s(self) -> float:
@@ -124,6 +141,7 @@ class Tracer:
         self._max_spans = max_spans
         self.dropped = 0
         self.origin = time.monotonic()
+        self.wall_off_ns = _wall_offset_ns()
 
     # -- span lifecycle ---------------------------------------------------
     @contextlib.contextmanager
@@ -134,7 +152,7 @@ class Tracer:
         parent = current_span() if current_tracer() is self else None
         sp = Span(next(self._ids),
                   parent.span_id if parent is not None else None,
-                  name, kind, attrs)
+                  name, kind, attrs, self.wall_off_ns)
         prev = (current_tracer(), current_span())
         _ctx.tracer, _ctx.span = self, sp
         try:
@@ -156,9 +174,6 @@ class Tracer:
             out = [s for s in out if s.kind == kind]
         out.sort(key=lambda s: s.t0)
         return out
-
-    def roots(self) -> list[Span]:
-        return [s for s in self.spans() if s.parent_id is None]
 
     def children_index(self) -> dict:
         """span_id -> list of child spans (each list sorted by start)."""
@@ -185,6 +200,7 @@ class Tracer:
         with self._lock:
             self._spans.clear()
             self.dropped = 0
+            self.wall_off_ns = _wall_offset_ns()
 
     # -- aggregation ------------------------------------------------------
     def stage_summary(self) -> dict:
@@ -230,6 +246,14 @@ class Tracer:
         with open(path, "w") as f:
             json.dump(doc, f)
         return len(doc["traceEvents"])
+
+
+def _wall_offset_ns() -> int:
+    """One anchor pair: epoch ns less monotonic ns, the epoch reading taken
+    between two monotonic ones and set against their midpoint."""
+    m0 = time.monotonic_ns()
+    wall = time.time_ns()
+    return wall - (m0 + time.monotonic_ns()) // 2
 
 
 # -- module-level context helpers ----------------------------------------
